@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each source under ``csrc/`` compiles into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The
+library is built at first use into ``build/kernels/`` at the repository
+root; its file name carries a hash of the source and the flags, so a
+changed ``.cu`` rebuilds. ``nvcc`` is found through ``CUDA_HOME``, then
+``PATH``, then ``/usr/local/cuda``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# No --use_fast_math: it would replace IEEE division and expf, and the
+# schedule is held to ULP closeness with the reference.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from source")
+
+
+def library_path(source: str) -> Path:
+    """Where ``csrc/<source>`` builds to: ``build/kernels/lib<stem>-<hash>.so``."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` unless its library exists; returns the path.
+    The compiler's output (register and shared-memory use, from ``-Xptxas
+    -v``) is kept beside the library as ``<name>.log``."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {source} "
+                           f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)        # atomic: a concurrent build sees all or none
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<source>``, once per
+    process."""
+    lib = _loaded.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(source)))
+        _loaded[source] = lib
+    return lib
