@@ -17,6 +17,22 @@ exits nonzero:
   5. timing   — kernels and plain versions at the main path's shape and at
                 the fig5-grid shape, bounds, and one end-to-end dispatch of
                 the grid.
+  6. sb_compare — each simulated-bifurcation variant's kernel against its
+                plain version on the card: the c0-scaled dense Max-Cut slice
+                (4, 256, 64), the Gset duel graph (1, 256, 2048), ragged
+                (3, 100, 37) and (2, 50, 300); bitwise across block_r values
+                and repeated calls.
+  7. sb_main  — ``solve_suite(..., solver="sb-jax")`` on the dense Max-Cut
+                slice for bSB, dSB and aSB with the oracle, launch counts
+                read around exactly those solves; gate: bSB mean SR >= the
+                engine's perturbation mean SR on the same suite and runs.
+  8. gset     — the solve CLI at N=2000 in a subprocess; sb-jax on the Gset
+                duel graph (gate: best cut >= 4700, cut from energy == cut
+                from spins); chip-lns on the same graph with the duel's
+                settings, printed beside the reference's recorded cuts.
+  9. timing   — each SB variant's kernel and plain version at both compare
+                shapes, bounds, and one end-to-end sb-jax solve at the Gset
+                shape.
 Then the card's name and power limit, the kernels line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
@@ -43,6 +59,16 @@ PEAK_BYTES = 3.35e12
 
 SUITE = dict(n=64, density=0.5, num_problems=8, seed=42)
 RUNS, SEED = 1024, 7
+
+# Simulated bifurcation: the reference's dense Max-Cut slice
+# (benchmarks/solver_matrix.py) and the N=2000 Gset duel graph
+# (benchmarks/fabric_scaling.py: gset_problem(2000, seed=1207 + 2)).
+SB_RUNS, SB_STEPS = 256, 400
+DUEL_SEED = 1209
+# the reference's duel cuts on that graph, recorded in BENCH_fabric.json
+# (duel_n2000, a CPU run of the JAX package)
+DUEL_RECORDED = {"chip-lns": 3923.0, "fabric-jax": 4144.0}
+SB_CUT_GATE = 4700.0
 
 
 def emit(obj) -> None:
@@ -110,16 +136,31 @@ def main_path_inputs(suite, runs, seed, dev):
 
 
 def phase_build():
+    """Compile every CUDA source, one nvcc each, all started together (the
+    run's time limit is shared by every phase); an nvcc failure re-raises
+    here from its future."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
-    from repro_torch.kernels.ising_anneal import SOURCE
-    t0 = time.perf_counter()
-    build.load(SOURCE)
-    build_s = time.perf_counter() - t0
-    log = build.library_path(SOURCE).with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
-    emit({"phase": "build", "build_s": build_s, "source": SOURCE,
-          "ptxas": ptxas})
+    from repro_torch.kernels import ising_anneal, sb_kernel
+    sources = (ising_anneal.SOURCE, sb_kernel.SOURCE)
+
+    def timed_build(src):
+        t0 = time.perf_counter()
+        build.build(src)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = [pool.submit(timed_build, src) for src in sources]
+        build_s = [fut.result() for fut in futures]
+    for src, secs in zip(sources, build_s):
+        build.load(src)
+        log = build.library_path(src).with_suffix(".log")
+        ptxas = [ln.strip() for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln or
+                 "Function properties" in ln] if log.exists() else []
+        emit({"phase": "build", "build_s": secs, "source": src,
+              "ptxas": ptxas})
 
 
 def compare_one(J, v0, dev, pert, j_dtype, block_r):
@@ -391,6 +432,305 @@ def phase_timing():
     return main
 
 
+def sb_slice_problems():
+    from repro_torch.api import Problem
+    return [Problem.maxcut(48, 0.9, seed=606 + i) for i in range(4)]
+
+
+def duel_problem():
+    from repro_torch.problems import gset_problem
+    return gset_problem(2000, seed=DUEL_SEED, degree=6.0)
+
+
+def sb_cases():
+    """(label, problems, runs, pad block) of each compare case: the dense
+    Max-Cut slice and the duel graph padded as ``solve_suite`` pads them,
+    and two ragged shapes left unpadded."""
+    from repro_torch.api import Problem
+    return [
+        ("maxcut_dense", sb_slice_problems(), SB_RUNS, 64),
+        ("gset", [duel_problem()], SB_RUNS, 64),
+        ("ragged_37", [Problem.random_qubo(37, 0.5, seed=37 + i)
+                       for i in range(3)], 100, 37),
+        ("ragged_300", [Problem.maxcut(300, 0.5, seed=300 + i)
+                        for i in range(2)], 50, 300),
+    ]
+
+
+def sb_inputs(problems, runs, block, seed=SEED):
+    """Level-space J, c0-scaled Jc, x0, y0 and true sizes that the sb-jax
+    solver hands the kernel for one pad bucket of ``problems``."""
+    import torch
+
+    from repro_torch.api import ProblemSuite
+    from repro_torch.solvers.sb_jax import sb_inits, sb_scaled_couplings
+    (bucket,) = ProblemSuite(problems).buckets(block)
+    n_true = [p.n for p in problems]
+    Jc = sb_scaled_couplings(bucket.J, n_true)
+    P, n_pad = bucket.J.shape[0], bucket.n_pad
+    x0, y0 = sb_inits(P, runs, n_pad, n_true=n_true, seed=seed,
+                      torch_device="cuda")
+    return (torch.as_tensor(bucket.J, device="cuda"),
+            torch.as_tensor(Jc, device="cuda"), x0, y0, n_true)
+
+
+def level_energies(J, x):
+    """(P, R) float64 energies of the sign readout of x against levels J."""
+    import torch
+
+    from repro_torch.core.binarize import sign_pm1
+    s = sign_pm1(x).double()
+    return -0.5 * torch.sum(s * torch.matmul(s, J.double().transpose(-1, -2)),
+                            dim=-1)
+
+
+def compare_sb(J, Jc, x0, y0, n_true, variant):
+    """SB kernel (block_r 8 twice, block_r 16 once) vs its plain version."""
+    import torch
+
+    from repro_torch.kernels.sb_kernel import fused_sb_kernel, sb_reference
+    kw = dict(variant=variant, n_steps=SB_STEPS, dt=0.5, a0=1.0)
+    xk = fused_sb_kernel(Jc, x0, y0, block_r=8, **kw)
+    xk_again = fused_sb_kernel(Jc, x0, y0, block_r=8, **kw)
+    xk_16 = fused_sb_kernel(Jc, x0, y0, block_r=16, **kw)
+    xp = sb_reference(Jc, x0, y0, **kw)
+    torch.cuda.synchronize()
+    check(xk.shape == x0.shape and bool(torch.isfinite(xk).all()),
+          f"SB {variant}: kernel output not finite / wrong shape")
+    pads_zero = all(bool((xk[p, :, n:] == 0).all())
+                    for p, n in enumerate(n_true))
+    differ = ((xk >= 0) != (xp >= 0)).any(dim=-1)            # (P, R)
+    ek, ep = level_energies(J, xk), level_energies(J, xp)
+    mean_gap = ((ek.mean(1) - ep.mean(1)).abs()
+                / ep.mean(1).abs().clamp(min=1.0))
+    best_gap = ((ek.min(1).values - ep.min(1).values).abs()
+                / ep.min(1).values.abs().clamp(min=1.0))
+    return {
+        "variant": variant, "shape": list(x0.shape),
+        "bitwise_repeat": bool(torch.equal(xk, xk_again)),
+        "bitwise_block_r_8_16": bool(torch.equal(xk, xk_16)),
+        "pads_zero": pads_zero,
+        "readouts_differ": float(differ.double().mean()),
+        "runs_differing": int(differ.sum()), "runs": int(differ.numel()),
+        "max_mean_energy_gap": float(mean_gap.max()),
+        "max_best_energy_gap": float(best_gap.max()),
+        "best_energy_kernel": ek.min(1).values.tolist(),
+        "best_energy_plain": ep.min(1).values.tolist(),
+        "max_abs_dx": float((xk - xp).abs().max()),
+    }
+
+
+def phase_sb_compare():
+    """Every SB variant at every case: readouts differ in <= 2% of runs,
+    mean- and best-energy gaps <= 0.5% per problem, bitwise equal to the
+    plain version, across block_r 8 / 16 and across two calls, zero pads
+    exactly 0. Returns the max |dx| of each variant at the Gset shape."""
+    from repro_torch.kernels.sb_kernel import SB_VARIANTS
+    err_at_gset = {}
+    for label, problems, runs, block in sb_cases():
+        J, Jc, x0, y0, n_true = sb_inputs(problems, runs, block)
+        for variant in SB_VARIANTS:
+            st = compare_sb(J, Jc, x0, y0, n_true, variant)
+            emit({"phase": "sb_compare", "case": label, **st})
+            what = f"SB {variant} {label}"
+            check(st["bitwise_repeat"] and st["bitwise_block_r_8_16"],
+                  f"{what}: kernel not bitwise repeatable / block_r-free")
+            check(st["pads_zero"], f"{what}: a zero pad left 0")
+            # kernel and plain version sum dv in one order (ordered_matvec)
+            check(st["max_abs_dx"] == 0.0,
+                  f"{what}: x_final differs from the plain version by "
+                  f"{st['max_abs_dx']} (both sum dv in one order, so 0)")
+            check(st["readouts_differ"] <= 0.02,
+                  f"{what}: {st['readouts_differ']:.4f} of runs read out "
+                  "other spins (limit 2%)")
+            check(st["max_mean_energy_gap"] <= 0.005,
+                  f"{what}: mean-energy gap {st['max_mean_energy_gap']} "
+                  "(limit 0.5%)")
+            check(st["max_best_energy_gap"] <= 0.005,
+                  f"{what}: best-energy gap {st['max_best_energy_gap']} "
+                  "(limit 0.5%)")
+            if label == "gset":
+                err_at_gset[variant] = st["max_abs_dx"]
+    return err_at_gset
+
+
+def phase_sb_main(oracle_path):
+    """sb-jax through ``solve_suite`` on the dense Max-Cut slice, each
+    variant, with the oracle; the engine's perturbation run on the same
+    suite and runs is the gate's yardstick. Returns the SB launch counts of
+    exactly the three sb-jax solves."""
+    import numpy as np
+
+    from repro_torch.api import ProblemSuite, solve_suite
+    from repro_torch.kernels import sb_kernel as sbk
+    suite = ProblemSuite(sb_slice_problems())
+    reports = {"engine": solve_suite(
+        suite, solver="engine", runs=SB_RUNS, seed=SEED,
+        variant="perturbation", torch_device="cuda", oracle_path=oracle_path)}
+    sbk.reset_launches()
+    for variant in ("bSB", "dSB", "aSB"):
+        reports[variant] = solve_suite(
+            suite, solver="sb-jax", runs=SB_RUNS, seed=SEED, variant=variant,
+            torch_device="cuda", oracle_path=oracle_path)
+    launches = dict(sbk.launches)
+    # one best-known for every report: the oracle, improved by any solve
+    best_known = np.minimum.reduce([r.best_known for r in reports.values()])
+    sr = {}
+    for name, rep in reports.items():
+        rep.attach_oracle(best_known)
+        if name != "engine":
+            kname = sbk.KERNEL_NAMES[name]
+            check(launches[kname] == rep.dispatches == 1,
+                  f"sb-jax {name}: {kname} launched {launches[kname]} times "
+                  f"for {rep.dispatches} buckets")
+        check(len(rep.energies) == len(suite) and
+              all(len(e) == SB_RUNS and all(map(math.isfinite, e))
+                  for e in rep.energies), f"{name}: energies malformed")
+        for i, p in enumerate(suite):
+            s = rep.best_sigma[i].astype(np.float64)
+            e = -0.5 * s @ p.J_levels.astype(np.float64) @ s
+            check(e == rep.best_energy[i], f"{name} problem {i}: energy "
+                  f"{rep.best_energy[i]} is not that of its spins ({e})")
+        m = rep.metrics()
+        sr[name] = m["mean_success_rate"]
+        emit({"phase": "sb_main", "solver": "engine" if name == "engine"
+              else "sb-jax", "variant": name,
+              "success_rate": [float(x) for x in m["success_rate"]],
+              "mean_success_rate": m["mean_success_rate"],
+              "best_energy": rep.best_energy.tolist(),
+              "best_known": rep.best_known.tolist(),
+              "dispatches": rep.dispatches, "wall_s": rep.wall_s,
+              "anneals_per_s": rep.anneals_per_s})
+    emit({"phase": "sb_main", "launches": launches})
+    check(sr["bSB"] >= sr["engine"], f"mean SR bSB {sr['bSB']} < engine "
+          f"perturbation {sr['engine']} on the dense Max-Cut slice")
+    return launches
+
+
+def phase_gset():
+    """The solve CLI at N=2000 (a subprocess on the card), sb-jax on the
+    duel graph, and chip-lns on the same graph with the duel's settings
+    (benchmarks/fabric_scaling.py: inner_runs 4, outer_sweeps 2,
+    anneal_sweeps 0.5, runs 4, seed 1207), which launches the f32 anneal
+    kernel once per outer sweep."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import get_solver
+    from repro_torch.core.hamiltonian import maxcut_value
+    from repro_torch.kernels import ising_anneal as ka
+    from repro_torch.kernels import sb_kernel as sbk
+    from repro_torch.launch.solve import solve
+    from repro_torch.problems import cut_from_energy
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.solve", "--solver",
+           "sb-jax", "--workload", "gset", "--spins", "2000", "--problems",
+           "1", "--runs", str(SB_RUNS), "--no-oracle", "--torch-device",
+           "cuda"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    cut_line = [ln for ln in lines if ln.startswith("[gset #0] N=2000 cut")]
+    emit({"phase": "gset", "cli": " ".join(cmd[1:]), "rc": proc.returncode,
+          "cli_s": cli_s, "stdout_tail": lines[-3:],
+          "stderr_tail": proc.stderr.strip().splitlines()[-5:]})
+    check(proc.returncode == 0 and len(cut_line) == 1,
+          f"CLI exited {proc.returncode} without a cut line")
+
+    sbk.reset_launches()
+    rep, suite = solve(2000, 0.5, 1, SB_RUNS, seed=DUEL_SEED, solver="sb-jax",
+                       workload="gset", oracle=False, degree=6.0,
+                       torch_device="cuda")
+    p = suite[0]
+    W = p.meta["W"]
+    e_best = float(rep.best_energy[0])
+    cut_e = cut_from_energy(W, e_best)
+    cut_s = float(maxcut_value(torch.as_tensor(W, dtype=torch.float64),
+                               torch.as_tensor(rep.best_sigma[0])))
+    cuts = [cut_from_energy(W, e) for e in rep.energies[0]]
+    emit({"phase": "gset", "solver": "sb-jax", "variant": "bSB",
+          "n": p.n, "edges": int((W > 0).sum() // 2), "runs": SB_RUNS,
+          "best_cut": cut_e, "cut_from_spins": cut_s,
+          "mean_cut": float(np.mean(cuts)), "wall_s": rep.wall_s,
+          "launches": dict(sbk.launches), "recorded_reference": DUEL_RECORDED})
+    check(sbk.launches["sb_bsb"] == 1, "gset: sb_bsb not launched once")
+    check(cut_e == cut_s, f"cut from energy {cut_e} != cut from spins {cut_s}")
+    check(cut_e >= SB_CUT_GATE, f"sb-jax best cut {cut_e} < {SB_CUT_GATE}")
+
+    ka.reset_launches()
+    lns = get_solver("chip-lns", anneal_sweeps=0.5, inner_runs=4,
+                     outer_sweeps=2, torch_device="cuda")
+    rep_c = lns.solve(p, runs=4, seed=1207)
+    launches = dict(ka.launches)
+    e_c = float(np.min(rep_c.energies[0]))
+    cut_c = cut_from_energy(W, e_c)
+    cut_cs = float(maxcut_value(torch.as_tensor(W, dtype=torch.float64),
+                                torch.as_tensor(rep_c.best_sigma[0])))
+    emit({"phase": "gset", "solver": "chip-lns", "best_cut": cut_c,
+          "cut_from_spins": cut_cs, "dispatches": rep_c.dispatches,
+          "engine_plan": rep_c.meta.get("engine_plan"),
+          "lns_timings": rep_c.meta["lns_timings"], "launches": launches,
+          "reference_chip_lns_cut": DUEL_RECORDED["chip-lns"],
+          "reference_fabric_jax_cut": DUEL_RECORDED["fabric-jax"]})
+    check(rep_c.dispatches == 2 and
+          launches["ising_anneal_f32"] == rep_c.dispatches,
+          f"chip-lns: {launches} for {rep_c.dispatches} dispatches")
+    check(cut_c == cut_cs, f"chip-lns cut from energy {cut_c} != cut from "
+          f"spins {cut_cs}")
+
+
+def phase_sb_timing():
+    """Each SB variant's kernel (median of 5, CUDA events, after a warm-up;
+    block_r 8) and plain version (median of 3) at both compare shapes, the
+    bound (all operations, and the real spins' alone: sum over problems of
+    2·R·n²·T), then one end-to-end sb-jax solve at the Gset shape. Returns
+    the Gset-shape rows."""
+    import statistics
+
+    from repro_torch.api import ProblemSuite, solve_suite
+    from repro_torch.kernels.sb_kernel import (KERNEL_NAMES, SB_VARIANTS,
+                                               fused_sb_kernel, sb_reference)
+    rows = {}
+    for label, problems, runs, block in sb_cases()[:2]:
+        J, Jc, x0, y0, n_true = sb_inputs(problems, runs, block)
+        P, R, N = x0.shape
+        ops = 2.0 * P * R * N * N * SB_STEPS
+        real_ops = sum(2.0 * R * n * n * SB_STEPS for n in n_true)
+        nbytes = 4 * (Jc.numel() + 3 * x0.numel())
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_OPS["float32"] * 1e3
+        for variant in SB_VARIANTS:
+            kw = dict(variant=variant, n_steps=SB_STEPS, dt=0.5, a0=1.0)
+            k = cuda_ms(lambda: fused_sb_kernel(Jc, x0, y0, block_r=8, **kw),
+                        5)
+            pl = cuda_ms(lambda: sb_reference(Jc, x0, y0, **kw), 3)
+            row = {"name": KERNEL_NAMES[variant], "shape": [P, R, N],
+                   "block_r": 8, "blocks": P * -(-R // 8),
+                   "steps": SB_STEPS, "ms": statistics.median(k), "ms_all": k,
+                   "plain_ms": statistics.median(pl), "plain_ms_all": pl,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "operations": ops, "bytes": nbytes,
+                   "real_operations": real_ops,
+                   "real_bound_ms": max(real_ops / PEAK_OPS["float32"] * 1e3,
+                                        t_bytes),
+                   "library_ms": None}
+            emit({"phase": "timing", "shape_of": label, **row})
+            if label == "gset":
+                rows[variant] = row
+    rep = solve_suite(ProblemSuite([duel_problem()]), solver="sb-jax",
+                      runs=SB_RUNS, seed=SEED, torch_device="cuda",
+                      oracle=False, warmup=True)
+    emit({"phase": "timing", "end_to_end": "sb-jax bSB", "shape_of": "gset",
+          "runs": SB_RUNS, "wall_s": rep.wall_s,
+          "first_call_extra_s": rep.compile_s,
+          "anneals_per_s": rep.anneals_per_s, "dispatches": rep.dispatches})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -410,7 +750,11 @@ def main() -> int:
         oracle_path = os.path.join(tmp, "oracle_cache_torch.json")
         launches = phase_main(oracle_path)
         phase_scan(oracle_path)
-    timing = phase_timing()
+        timing = phase_timing()
+        sb_err = phase_sb_compare()
+        sb_launches = phase_sb_main(oracle_path)
+        phase_gset()
+        sb_timing = phase_sb_timing()
 
     kernels = []
     for j_dtype, row in timing.items():
@@ -420,6 +764,15 @@ def main() -> int:
             "replaces": "src/repro/kernels/ising_anneal.py:59",
             "launches": launches[row["name"]],
             "max_abs_err": err[j_dtype], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None})
+    for variant, row in sb_timing.items():
+        kernels.append({
+            "name": row["name"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sb_kernel.cu",
+            "replaces": "src/repro/kernels/sb_kernel.py:79",
+            "launches": sb_launches[row["name"]],
+            "max_abs_err": sb_err[variant], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
     for kern in kernels:

@@ -172,6 +172,18 @@ class Problem:
             meta={"density": density, "seed": seed}, max_level=max_level)
 
     @classmethod
+    def maxcut(cls, n: int, density: float, seed: int = 0,
+               weighted: bool = True, max_w: int = MAX_LEVEL) -> "Problem":
+        """Random (weighted) Max-Cut; J = -W per paper Eq. (2). The graph
+        adjacency is kept in ``meta['W']`` for cut-value readout."""
+        from ..core.hamiltonian import maxcut_to_ising
+        from ..problems.maxcut import random_maxcut
+        W = random_maxcut(n, density, seed, weighted, max_w)
+        return cls.from_couplings(
+            maxcut_to_ising(W), kind="maxcut",
+            meta={"W": W, "density": density, "seed": seed})
+
+    @classmethod
     def partition(cls, values, max_level: int = MAX_LEVEL) -> "Problem":
         """Number partitioning: J_ij = -2 a_i a_j (zero diagonal).
 

@@ -12,9 +12,11 @@ Batched solvers bucket heterogeneous suites by padded size, so a mixed
 ``SolveReport.dispatches`` records the count.
 
 Registered here: ``engine`` (the digital twin on the AnnealEngine, variants
-``perturbation`` / ``gd`` / ``noise``) and ``brute-force`` (exact). Every
-solver takes ``torch_device`` (default ``"cuda"``; raises without CUDA
-unless it is ``"cpu"``).
+``perturbation`` / ``gd`` / ``noise``), ``sb-jax`` (simulated bifurcation on
+its own kernel; the reference's name), ``chip-lns`` (block decomposition of
+N > 64 onto the engine) and ``brute-force`` (exact). Every solver takes
+``torch_device`` (default ``"cuda"``; raises without CUDA unless it is
+``"cpu"``).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 from ..device import resolve_device
 from ..solvers.brute_force import BRUTE_FORCE_MAX_N
 from .batching import CHIP_BLOCK, padded_size, plan_buckets
-from .budget import budget_factor
+from .budget import budget_factor, search_effort
 from .oracle import best_known_energies, reconcile_best_known
 from .problem import Problem
 from .report import SolveReport
@@ -147,7 +149,9 @@ def _check_max_n(suite: ProblemSuite, caps: SolverCaps, name: str,
         pad = padded_size(big, block)
         raise ValueError(
             f"solver {name!r} declares max_n={caps.max_n} but the suite has "
-            f"N={big} (would pad to a {pad}-spin virtual chip)")
+            f"N={big} (would pad to a {pad}-spin virtual chip); use the "
+            f"'chip-lns' decomposition solver for problems beyond one "
+            f"{caps.max_n}-spin block")
 
 
 def _bucketed_report(suite, solver_name, runs, block, run_bucket,
@@ -272,6 +276,173 @@ class EngineSolver:
                                    "j_dtype": plan.j_dtype,
                                    "reason": plan.reason}
         return rep
+
+
+@register_solver("sb-jax", needs_oracle=True, exact=False, device="torch")
+class SBJaxSolver:
+    """Simulated bifurcation (``solvers.sb_jax``) — the state-of-the-art
+    classical competitor on dense Max-Cut, run by the SB kernel
+    (``kernels.sb_kernel``): position/momentum symplectic updates over
+    (problems × restarts), the linear pump ramp derived in-kernel from the
+    step index, inelastic walls for bSB/dSB, ``sign_pm1`` readout — one
+    launch per pad bucket. No size limit.
+
+    ``variant``: 'bSB' (default — ballistic, the robust all-rounder),
+    'dSB' (discrete drive, strongest on dense Max-Cut), 'aSB' (the
+    original adiabatic Kerr form). ``budget`` multiplies the integration
+    step count per the uniform ``search_effort`` mapping; the per-problem
+    coupling scale c0 is derived from each problem's TRUE size, so padded
+    buckets normalize exactly like unpadded solves. Bucket b's inits are
+    seeded ``seed + 7919 * b``.
+    """
+
+    def __init__(self, variant: str = "bSB", n_steps: int = 400,
+                 dt: float = 0.5, a0: float = 1.0, warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        from ..kernels.sb_kernel import check_variant
+        check_variant(variant)
+        self.variant = variant
+        self.n_steps = n_steps
+        self.dt = dt
+        self.a0 = a0
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..solvers.sb_jax import simulated_bifurcation_jax_runs
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        eff = search_effort(self.n_steps, runs, budget)
+
+        def run_bucket(bucket, b_idx):
+            return simulated_bifurcation_jax_runs(
+                bucket.J,
+                n_true=[suite[i].n for i in bucket.indices],
+                variant=self.variant, n_steps=eff.iters,
+                n_restarts=eff.restarts, dt=self.dt, a0=self.a0,
+                seed=seed + 7919 * b_idx, torch_device=self.torch_device)
+
+        return _bucketed_report(
+            suite, self.name, runs, block, run_bucket,
+            meta={"variant": self.variant, "dt": self.dt, "a0": self.a0,
+                  "effort": dataclasses.asdict(eff),
+                  "torch_device": str(self.torch_device)},
+            warmup=self.warmup)
+
+
+@register_solver("chip-lns", needs_oracle=True, exact=False, device="torch")
+class ChipLNSSolver:
+    """Multi-chip decomposition: large-neighborhood search over one-die
+    blocks (``core.engine.BlockLNS``) — the registry's only solver WITHOUT
+    a capacity limit that still runs on the chip's anneal path.
+
+    Problems with N <= ``block`` are delegated verbatim to the direct
+    engine solve (same machine, same seeds — bit-identical energies), so
+    'chip-lns' is a strict superset of 'engine'. Larger problems iterate:
+    clamp all but one (block-1)-spin sub-block, anneal the free block plus
+    one boundary-field ancilla as exactly one die, and accept candidate
+    block configurations by exact float64 delta energy — every (problem,
+    restart, block) sub-instance of an outer sweep rides ONE engine
+    dispatch. ``runs`` is the number of independent LNS restarts;
+    ``budget`` multiplies the outer sweep count (the engine delegation for
+    small problems keeps its own default anneal length). ``backend`` takes
+    the engine's path names (``scan`` / ``fused`` / ``auto``).
+    """
+
+    def __init__(self, backend: str = "auto", inner_runs: int = 8,
+                 outer_sweeps: Optional[int] = None,
+                 anneal_sweeps: Optional[float] = None,
+                 warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        self.backend = backend
+        self.inner_runs = inner_runs
+        self.outer_sweeps = outer_sweeps
+        self.anneal_sweeps = anneal_sweeps
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    def _engine(self):
+        from ..core.device_model import DeviceModel
+        from ..core.engine import AnnealEngine
+        dev = DeviceModel()
+        if self.anneal_sweeps:
+            dev = dataclasses.replace(dev, anneal_sweeps=self.anneal_sweeps)
+        return AnnealEngine(device=dev, path=self.backend,
+                            torch_device=self.torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..core.engine import BlockLNS, lns_blocks
+        suite = as_suite(suite)
+        wall = 0.0
+        # Delegation threshold: the direct engine can only take what BOTH
+        # the requested block and its own die cap allow — with block > 64
+        # the oversized problems must still decompose.
+        delegate_n = min(block, EngineSolver.caps.max_n or block)
+        small = [i for i, n in enumerate(suite.sizes) if n <= delegate_n]
+        big = [i for i, n in enumerate(suite.sizes) if n > delegate_n]
+
+        energies = [None] * len(suite)
+        sigmas = [None] * len(suite)
+        dispatches = 0
+        compile_s = 0.0
+        meta = {"block": block, "inner_runs": self.inner_runs,
+                "lns_problems": big, "torch_device": str(self.torch_device)}
+
+        if small:
+            sub = ProblemSuite([suite[i] for i in small])
+            rep = EngineSolver(backend=self.backend, warmup=self.warmup,
+                               torch_device=self.torch_device).solve(
+                sub, runs=runs, seed=seed, budget=None, block=delegate_n)
+            for k, i in enumerate(small):
+                energies[i] = rep.energies[k]
+                sigmas[i] = rep.best_sigma[k]
+            dispatches += rep.dispatches
+            compile_s += rep.compile_s
+            wall += rep.wall_s
+            meta["engine_plan"] = rep.meta.get("engine_plan")
+
+        if big:
+            n_blocks = max(len(lns_blocks(suite[i].n, delegate_n - 1))
+                           for i in big)
+            outer = self.outer_sweeps or max(4, 2 * n_blocks)
+            outer = search_effort(outer, runs, budget).iters
+            # the die is delegate_n, never the (possibly larger) pad block
+            lns = BlockLNS(self._engine(), chip_block=delegate_n,
+                           inner_runs=self.inner_runs)
+            big_J = [suite[i].J_levels.astype(np.float64) for i in big]
+            if self.warmup:
+                # same first-call / steady split as _bucketed_report: a
+                # discarded identical solve (deterministic seed) first
+                tw = time.time()
+                lns.solve(big_J, restarts=runs, outer_sweeps=outer,
+                          seed=seed + 104729)
+                t_first = time.time() - tw
+            t0 = time.time()
+            results, d = lns.solve(big_J, restarts=runs,
+                                   outer_sweeps=outer, seed=seed + 104729)
+            if self.warmup:
+                compile_s += max(0.0, t_first - (time.time() - t0))
+            dispatches += d
+            meta["outer_sweeps"] = outer
+            meta["lns_timings"] = lns.last_timings
+            meta["n_blocks"] = n_blocks
+            meta["init_energies"] = {}
+            for (e, s, e0), i in zip(results, big):
+                energies[i] = e
+                sigmas[i] = s[int(np.argmin(e))]
+                meta["init_energies"][i] = e0.tolist()
+            wall += time.time() - t0
+
+        return SolveReport(
+            solver=self.name, runs=runs, energies=energies,
+            best_sigma=sigmas, problem_hashes=suite.hashes,
+            sizes=suite.sizes, scales=tuple(p.scale for p in suite),
+            wall_s=wall, compile_s=compile_s, dispatches=dispatches,
+            meta=meta)
 
 
 @register_solver("brute-force", needs_oracle=False, exact=True,

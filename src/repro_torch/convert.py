@@ -4,7 +4,8 @@ The port never imports ``repro``; what crosses is plain data. A caller that
 has both packages passes ``dataclasses.asdict`` of a reference
 ``DeviceModel`` / ``PerturbationConfig`` and ``np.asarray`` views of a
 reference ``Problem``'s arrays. A carried problem has the same
-``content_hash``, so it keys the same oracle-cache entry.
+``content_hash``, so it keys the same oracle-cache entry. The reference's
+``jax.random`` draws (SB initial states) cross as numpy arrays too.
 """
 from __future__ import annotations
 
@@ -12,11 +13,13 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from .api.problem import MAX_LEVEL, Problem
 from .api.suite import ProblemSuite
 from .core.device_model import DeviceModel
 from .core.perturbation import PerturbationConfig
+from .device import resolve_device
 
 
 def _from_fields(cls, fields: dict):
@@ -65,3 +68,16 @@ def suite_from_arrays(levels: Sequence, scales: Optional[Sequence] = None,
     return ProblemSuite([
         problem_from_arrays(lv, sc, h, kind, meta, max_level)
         for lv, sc, h, kind, meta in zip(levels, scales, hs, kinds, metas)])
+
+
+def sb_inits_from_arrays(x0, y0, torch_device: str | torch.device = "cuda"):
+    """The reference's ``sb_inits`` output (numpy (P, R, N) positions and
+    momenta) as the port's (P, R, N) float32 tensors on ``torch_device``,
+    for ``simulated_bifurcation_jax_runs(x0=, y0=)``."""
+    dev = resolve_device(torch_device)
+    x0, y0 = (torch.as_tensor(np.array(a, dtype=np.float32),
+                              device=dev).contiguous() for a in (x0, y0))
+    if x0.dim() != 3 or x0.shape != y0.shape:
+        raise ValueError(f"need x0 and y0 of one (P, R, N) shape, got "
+                         f"{tuple(x0.shape)} and {tuple(y0.shape)}")
+    return x0, y0

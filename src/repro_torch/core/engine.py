@@ -225,6 +225,143 @@ class AnnealEngine:
         return AnnealResult(v_final=v, sigma=sigma, energy=energy)
 
 
+# ---------------------------------------------------------------------------
+# multi-chip decomposition: large-neighborhood search over one-die blocks
+# ---------------------------------------------------------------------------
+
+def lns_blocks(n: int, free_block: int) -> list[np.ndarray]:
+    """Balanced contiguous partition of [0, n) into ceil(n/free_block)
+    blocks of at most ``free_block`` spins each."""
+    if free_block < 1:
+        raise ValueError(f"free_block must be >= 1, got {free_block}")
+    n_blocks = max(1, -(-n // free_block))
+    return [np.asarray(b) for b in np.array_split(np.arange(n), n_blocks)]
+
+
+class BlockLNS:
+    """Large-neighborhood search past the single-die limit (N > chip block).
+
+    The chip solves at most ``chip_block`` all-to-all spins. For larger
+    problems we clamp all but one sub-block and anneal the free block on the
+    die: each sub-block holds ``chip_block - 1`` free spins plus ONE
+    boundary ancilla whose coupling row carries the exact field from every
+    clamped spin (``h_i = sum_{j not in blk} J_ij s_j``) — so a sub-solve
+    is exactly one 64-spin die dispatch, and the bias-free Z2 symmetry
+    makes ancilla pinning unnecessary (candidates are gauge-fixed after).
+
+    Per outer sweep, EVERY (problem, restart, block) sub-instance across
+    the whole batch is stacked into one ``(S, chip_block, chip_block)``
+    engine dispatch (on the card: one anneal-kernel launch). Candidate
+    block configurations are then accepted sequentially per block by EXACT
+    delta energy against the *current* state (float64 on the full J, host
+    numpy), so the per-restart incumbent energy is monotonically
+    non-increasing. Host numpy rng and LFSR inits, as in the reference:
+    results are deterministic for a seed.
+    """
+
+    def __init__(self, engine: AnnealEngine, chip_block: int = 64,
+                 inner_runs: int = 8):
+        self.engine = engine
+        self.chip_block = chip_block
+        self.inner_runs = inner_runs
+        #: host vs engine wall split of the last ``solve`` (seconds)
+        self.last_timings: dict = {}
+
+    def solve(self, J_list, restarts: int, outer_sweeps: int, seed: int = 0):
+        """Minimize level-space H = -0.5 s'Js for each (N_i, N_i) in
+        ``J_list``. Returns (per-problem (energies (R,), sigma (R, N_i),
+        init_energies (R,)), dispatches)."""
+        from .lfsr import lfsr_voltage_inits
+        cb = self.chip_block
+        rng = np.random.default_rng(seed)
+        Js = [np.asarray(J, dtype=np.float64) for J in J_list]
+        blocks = [lns_blocks(J.shape[0], cb - 1) for J in Js]
+        states = [rng.choice([-1.0, 1.0], size=(restarts, J.shape[0]))
+                  for J in Js]
+
+        def energies(p):
+            S = states[p]
+            return -0.5 * np.einsum("ri,ij,rj->r", S, Js[p], S)
+
+        init_e = [energies(p) for p in range(len(Js))]
+
+        # flat subproblem order: for each problem, for each block, R restarts
+        sub_of = [(p, b) for p in range(len(Js))
+                  for b in range(len(blocks[p]))]
+        n_subs = len(sub_of) * restarts
+
+        # sweep-invariant precompute: per-(problem, block) index sets,
+        # coupling extracts, and the padded batch template. Only the
+        # boundary-ancilla row/col changes between sweeps.
+        t_host0 = time.perf_counter()
+        t_engine = 0.0
+        sub_J = {}
+        for p, b in sub_of:
+            J, blk = Js[p], blocks[p][b]
+            sub_J[(p, b)] = (blk, J[np.ix_(blk, blk)], J[:, blk])
+        batch = np.zeros((n_subs, cb, cb), dtype=np.float32)
+        row_of = {}
+        k = 0
+        for p, b in sub_of:
+            blk, Jbb, _ = sub_J[(p, b)]
+            m = len(blk)
+            rows = slice(k, k + restarts)
+            batch[rows, 1:m + 1, 1:m + 1] = Jbb            # stamped once
+            row_of[(p, b)] = (rows, m)
+            k += restarts
+
+        dispatches = 0
+        for sweep in range(outer_sweeps):
+            # rewrite each sub-instance's boundary ancilla row/col — every
+            # restart carries its own exact clamped field
+            for p, b in sub_of:
+                S = states[p]
+                blk, Jbb, Jcols = sub_J[(p, b)]
+                rows, m = row_of[(p, b)]
+                h = S @ Jcols - S[:, blk] @ Jbb            # (R, m) exact field
+                batch[rows, 0, 1:m + 1] = h
+                batch[rows, 1:m + 1, 0] = h
+            v0 = torch.as_tensor(lfsr_voltage_inits(
+                cb, self.inner_runs, seed=seed + 7919 * (sweep + 1)))
+            t0 = time.perf_counter()
+            res = self.engine.run(batch, v0.expand((n_subs,) + v0.shape))
+            e = res.energy.cpu().numpy()                   # (S, inner_runs)
+            sig = res.sigma.cpu().numpy()                  # (S, inner, cb)
+            t_engine += time.perf_counter() - t0
+            dispatches += 1
+            best = e.argmin(axis=1)
+            cand_all = np.take_along_axis(
+                sig, best[:, None, None], axis=1)[:, 0]    # (S, cb)
+
+            for p, b in sub_of:
+                S = states[p]
+                blk, Jbb, Jcols = sub_J[(p, b)]
+                rows, m = row_of[(p, b)]
+                cand = cand_all[rows]
+                # gauge-fix the boundary ancilla to +1, trim to the block
+                cand = (cand[:, 1:m + 1] * cand[:, :1]).astype(np.float64)
+                # exact delta vs the CURRENT state (earlier blocks of this
+                # sweep may already have moved; h is recomputed, not reused)
+                h = S @ Jcols - S[:, blk] @ Jbb
+                e_new = -np.einsum("rm,rm->r", h, cand) \
+                    - 0.5 * np.einsum("rm,mk,rk->r", cand, Jbb, cand)
+                cur = S[:, blk]
+                e_old = -np.einsum("rm,rm->r", h, cur) \
+                    - 0.5 * np.einsum("rm,mk,rk->r", cur, Jbb, cur)
+                acc = np.flatnonzero(e_new < e_old - 1e-9)
+                if len(acc):
+                    S[np.ix_(acc, blk)] = cand[acc]
+
+        t_total = time.perf_counter() - t_host0
+        self.last_timings = {"t_total": t_total, "t_engine": t_engine,
+                             "t_host": t_total - t_engine,
+                             "dispatches": dispatches}
+        out = []
+        for p in range(len(Js)):
+            out.append((energies(p), states[p].astype(np.int8), init_e[p]))
+        return out, dispatches
+
+
 def _is_pow2(x: float) -> bool:
     """True when x is an exact power of two (mantissa 0.5 after frexp)."""
     if not (x > 0 and math.isfinite(x)):

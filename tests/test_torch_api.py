@@ -212,7 +212,8 @@ def test_noise_variant_and_brute_force_solver(caches):
                                                     num_problems=2, seed=3),
                            solver="brute-force")
     assert np.array_equal(ref.best_energy, exact.best_energy)
-    assert set(tapi.list_solvers()) == {"engine", "brute-force"}
+    assert set(tapi.list_solvers()) == {"engine", "brute-force", "sb-jax",
+                                        "chip-lns"}
     with pytest.raises(ValueError, match="max_n"):
         tapi.solve_suite(tapi.ProblemSuite.random(n=70, density=0.5,
                                                   num_problems=1, seed=0),

@@ -23,7 +23,8 @@ def _env(**extra):
 
 def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
-            "repro_torch.kernels, repro_torch.convert; "
+            "repro_torch.kernels, repro_torch.convert, repro_torch.problems, "
+            "repro_torch.solvers, repro_torch.launch.solve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -47,12 +48,19 @@ def _no_cuda(monkeypatch):
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.api import ProblemSuite, get_solver, solve_suite
     from repro_torch.core import AnnealEngine, IsingMachine
+    from repro_torch.launch.solve import solve
+    from repro_torch.solvers.sb_jax import simulated_bifurcation_jax_runs
     _no_cuda(monkeypatch)
     suite = ProblemSuite.random(n=8, density=0.5, num_problems=1, seed=0)
     for call in (lambda: solve_suite(suite, runs=2),
                  lambda: solve_suite(suite, solver="brute-force"),
+                 lambda: solve_suite(suite, solver="sb-jax", runs=2),
                  lambda: get_solver("engine"),
                  lambda: get_solver("brute-force"),
+                 lambda: get_solver("sb-jax"),
+                 lambda: get_solver("chip-lns"),
+                 lambda: simulated_bifurcation_jax_runs(suite[0].J_levels),
+                 lambda: solve(8, 0.5, 1, 2, solver="sb-jax", oracle=False),
                  lambda: IsingMachine(),
                  lambda: AnnealEngine(),
                  lambda: IsingMachine(torch_device="cuda:0")):
@@ -62,6 +70,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     rep = solve_suite(suite, runs=2, budget=0.05, torch_device="cpu",
                       oracle=False)
     assert rep.meta["torch_device"] == "cpu"
+    rep = solve_suite(suite, solver="sb-jax", runs=2, budget=0.05,
+                      torch_device="cpu", oracle=False)
+    assert rep.meta["torch_device"] == "cpu"
+
+
+def test_solve_cli_raises_without_cuda_unless_asked_for_the_cpu():
+    env = _env(CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.solve", "--solver",
+           "sb-jax", "--workload", "maxcut", "--spins", "12", "--problems",
+           "1", "--runs", "4", "--no-oracle", "--budget", "0.05"]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "torch_device='cpu'" in out.stderr
+    out = subprocess.run(cmd + ["--torch-device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "[maxcut #0] N=12 cut weight=" in out.stdout
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
