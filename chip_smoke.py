@@ -20,8 +20,10 @@ exits nonzero:
   6. sb_compare — each simulated-bifurcation variant's kernel against its
                 plain version on the card: the c0-scaled dense Max-Cut slice
                 (4, 256, 64), the Gset duel graph (1, 256, 2048), ragged
-                (3, 100, 37) and (2, 50, 300); bitwise across block_r values
-                and repeated calls.
+                (3, 100, 37) and (2, 50, 300), a 7000-spin Gset-sized
+                graph (1, 32, 7040) at 20 steps and one at the kernel's
+                largest N (1, 32, 8192) at 10 steps; bitwise across two
+                launch plans and repeated calls; unrunnable plans refused.
   7. sb_main  — ``solve_suite(..., solver="sb-jax")`` on the dense Max-Cut
                 slice for bSB, dSB and aSB with the oracle, launch counts
                 read around exactly those solves; gate: bSB mean SR >= the
@@ -30,15 +32,20 @@ exits nonzero:
                 duel graph (gate: best cut >= 4700, cut from energy == cut
                 from spins); chip-lns on the same graph with the duel's
                 settings, printed beside the reference's recorded cuts.
-  9. timing   — each SB variant's kernel and plain version at both compare
-                shapes, bounds, and one end-to-end sb-jax solve at the Gset
-                shape.
+  9. timing   — each SB variant's kernel and plain version at the dense
+                and Gset shapes with the launch plan, its registers and
+                spills, and the bounds; the products-only yardstick and the
+                card's cluster capacity at the Gset shape; the kernel at
+                7000 spins; the plan's pick against plans of other cluster
+                sizes at the Gset, (2, 50, 300) and 7000-spin shapes; one
+                end-to-end sb-jax solve at the Gset shape.
 Then the card's name and power limit, the kernels line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -443,17 +450,26 @@ def duel_problem():
 
 
 def sb_cases():
-    """(label, problems, runs, pad block) of each compare case: the dense
-    Max-Cut slice and the duel graph padded as ``solve_suite`` pads them,
-    and two ragged shapes left unpadded."""
+    """(label, problems, runs, pad block, steps) of each compare case: the
+    dense Max-Cut slice and the duel graph padded as ``solve_suite`` pads
+    them, two ragged shapes left unpadded, a Gset-sized graph of 7000
+    spins (the size of G55-G64), past the L2, and one of ``MAX_N`` spins,
+    the kernel's largest, at 32 runs and 20 or 10 steps so that the plain
+    version stays within seconds."""
     from repro_torch.api import Problem
+    from repro_torch.kernels.sb_kernel import MAX_N
+    from repro_torch.problems import gset_problem
     return [
-        ("maxcut_dense", sb_slice_problems(), SB_RUNS, 64),
-        ("gset", [duel_problem()], SB_RUNS, 64),
+        ("maxcut_dense", sb_slice_problems(), SB_RUNS, 64, SB_STEPS),
+        ("gset", [duel_problem()], SB_RUNS, 64, SB_STEPS),
         ("ragged_37", [Problem.random_qubo(37, 0.5, seed=37 + i)
-                       for i in range(3)], 100, 37),
+                       for i in range(3)], 100, 37, SB_STEPS),
         ("ragged_300", [Problem.maxcut(300, 0.5, seed=300 + i)
-                        for i in range(2)], 50, 300),
+                        for i in range(2)], 50, 300, SB_STEPS),
+        ("gset_7000", [gset_problem(7000, seed=DUEL_SEED, degree=6.0)], 32,
+         64, 20),
+        ("gset_max_n", [gset_problem(MAX_N, seed=DUEL_SEED, degree=6.0)], 32,
+         64, 10),
     ]
 
 
@@ -484,15 +500,28 @@ def level_energies(J, x):
                             dim=-1)
 
 
-def compare_sb(J, Jc, x0, y0, n_true, variant):
-    """SB kernel (block_r 8 twice, block_r 16 once) vs its plain version."""
+#: the two block_r values (runs per cluster) compare_sb holds bitwise
+#: equal: the plan's default and one that gives another geometry at every
+#: case
+SB_BLOCK_R_PAIR = (None, 4)
+
+
+def compare_sb(J, Jc, x0, y0, n_true, variant, steps=SB_STEPS):
+    """SB kernel (the first block_r of ``SB_BLOCK_R_PAIR`` twice, the second
+    once) vs its plain version."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.kernels.sb_kernel import fused_sb_kernel, sb_reference
-    kw = dict(variant=variant, n_steps=SB_STEPS, dt=0.5, a0=1.0)
-    xk = fused_sb_kernel(Jc, x0, y0, block_r=8, **kw)
-    xk_again = fused_sb_kernel(Jc, x0, y0, block_r=8, **kw)
-    xk_16 = fused_sb_kernel(Jc, x0, y0, block_r=16, **kw)
+    from repro_torch.kernels.sb_kernel import (fused_sb_kernel, sb_card_plan,
+                                               sb_reference)
+    kw = dict(variant=variant, n_steps=steps, dt=0.5, a0=1.0)
+    br_a, br_b = SB_BLOCK_R_PAIR
+    plans = [sb_card_plan(*x0.shape, br) for br in SB_BLOCK_R_PAIR]
+    check(plans[0] != plans[1], f"block_r {br_a} and {br_b} give one plan")
+    xk = fused_sb_kernel(Jc, x0, y0, block_r=br_a, **kw)
+    xk_again = fused_sb_kernel(Jc, x0, y0, block_r=br_a, **kw)
+    xk_b = fused_sb_kernel(Jc, x0, y0, block_r=br_b, **kw)
     xp = sb_reference(Jc, x0, y0, **kw)
     torch.cuda.synchronize()
     check(xk.shape == x0.shape and bool(torch.isfinite(xk).all()),
@@ -506,9 +535,11 @@ def compare_sb(J, Jc, x0, y0, n_true, variant):
     best_gap = ((ek.min(1).values - ep.min(1).values).abs()
                 / ep.min(1).values.abs().clamp(min=1.0))
     return {
-        "variant": variant, "shape": list(x0.shape),
+        "variant": variant, "shape": list(x0.shape), "steps": steps,
+        "plans": {str(br): dataclasses.asdict(pl)
+                  for br, pl in zip(SB_BLOCK_R_PAIR, plans)},
         "bitwise_repeat": bool(torch.equal(xk, xk_again)),
-        "bitwise_block_r_8_16": bool(torch.equal(xk, xk_16)),
+        "bitwise_block_r_pair": bool(torch.equal(xk, xk_b)),
         "pads_zero": pads_zero,
         "readouts_differ": float(differ.double().mean()),
         "runs_differing": int(differ.sum()), "runs": int(differ.numel()),
@@ -523,17 +554,17 @@ def compare_sb(J, Jc, x0, y0, n_true, variant):
 def phase_sb_compare():
     """Every SB variant at every case: readouts differ in <= 2% of runs,
     mean- and best-energy gaps <= 0.5% per problem, bitwise equal to the
-    plain version, across block_r 8 / 16 and across two calls, zero pads
+    plain version, across the block_r pair and across two calls, zero pads
     exactly 0. Returns the max |dx| of each variant at the Gset shape."""
     from repro_torch.kernels.sb_kernel import SB_VARIANTS
     err_at_gset = {}
-    for label, problems, runs, block in sb_cases():
+    for label, problems, runs, block, steps in sb_cases():
         J, Jc, x0, y0, n_true = sb_inputs(problems, runs, block)
         for variant in SB_VARIANTS:
-            st = compare_sb(J, Jc, x0, y0, n_true, variant)
+            st = compare_sb(J, Jc, x0, y0, n_true, variant, steps)
             emit({"phase": "sb_compare", "case": label, **st})
             what = f"SB {variant} {label}"
-            check(st["bitwise_repeat"] and st["bitwise_block_r_8_16"],
+            check(st["bitwise_repeat"] and st["bitwise_block_r_pair"],
                   f"{what}: kernel not bitwise repeatable / block_r-free")
             check(st["pads_zero"], f"{what}: a zero pad left 0")
             # kernel and plain version sum dv in one order (ordered_matvec)
@@ -551,7 +582,41 @@ def phase_sb_compare():
                   "(limit 0.5%)")
             if label == "gset":
                 err_at_gset[variant] = st["max_abs_dx"]
+    check_sb_refusals(Jc, x0, y0)
     return err_at_gset
+
+
+@contextlib.contextmanager
+def sb_forced_plan(make):
+    """Within the block, ``fused_sb_kernel`` launches ``make(plan)`` in place
+    of the card's plan."""
+    from repro_torch.kernels import sb_kernel as sbk
+    card_plan = sbk.sb_card_plan
+    sbk.sb_card_plan = lambda *a, **k: make(card_plan(*a, **k))
+    try:
+        yield
+    finally:
+        sbk.sb_card_plan = card_plan
+
+
+def check_sb_refusals(Jc, x0, y0):
+    """A plan the kernel cannot run is refused by ``sb_integrate`` and the
+    wrapper raises; nothing runs another path instead."""
+    from repro_torch.kernels import sb_kernel as sbk
+    refused = {}
+    for field, value in (("cluster", sbk.MAX_CLUSTER + 1),
+                         ("smem_bytes", sbk.SMEM_MAX + 16),
+                         ("threads", 1)):
+        try:
+            with sb_forced_plan(lambda pl: dataclasses.replace(
+                    pl, **{field: value})):
+                sbk.fused_sb_kernel(Jc, x0, y0, n_steps=1)
+            refused[field] = None
+        except RuntimeError as err:
+            refused[field] = str(err).rsplit(":", 1)[-1].strip()
+    emit({"phase": "sb_compare", "refusals": refused})
+    check(all(refused.values()), f"an unrunnable plan was launched: "
+          f"{refused}")
 
 
 def phase_sb_main(oracle_path):
@@ -682,35 +747,100 @@ def phase_gset():
           f"spins {cut_cs}")
 
 
+def sb_plan_row(x0, block_r=None):
+    """The card's launch plan for ``x0``'s shape, with the registers and
+    spill bytes of the kernel instance that runs it (``-Xptxas -v``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sb_kernel as sbk
+    plan = sbk.sb_card_plan(*x0.shape, block_r)
+    fn = sbk.KERNEL_FUNCTION[plan.regime]
+    (usage,) = [u for name, u in build.ptxas_report(sbk.SOURCE).items()
+                if fn in name]
+    return {**dataclasses.asdict(plan), **usage}
+
+
+#: cluster sizes whose plans phase 9 times against the plan's own pick, by
+#: case: the portable 8 everywhere, the largest that fits at 7000 spins
+#: (the pick there is 14) and a small one at (2, 50, 300)
+SB_PLAN_ALTERNATIVES = {"gset": (8,), "ragged_300": (8, 4),
+                        "gset_7000": (16, 8)}
+
+
+def sb_plan_alternatives(Jc, x0, y0, steps, clusters):
+    """bSB kernel times (median of 5, CUDA events) of the card's plan for
+    ``x0``'s shape and of the plan ``sb_launch_plan`` makes when only
+    clusters of C CTAs fit, for each C in ``clusters``; each result held
+    bitwise equal to the pick's."""
+    import torch
+
+    from repro_torch.kernels import sb_kernel as sbk
+    kw = dict(variant="bSB", n_steps=steps, dt=0.5, a0=1.0)
+    card = sbk._card_capacity(sbk._library(), x0.device)
+    pick = sbk.sb_card_plan(*x0.shape)
+    x_pick = sbk.fused_sb_kernel(Jc, x0, y0, **kw)
+    rows = [{"cluster": pick.cluster, "pick": True,
+             "ms": statistics.median(cuda_ms(
+                 lambda: sbk.fused_sb_kernel(Jc, x0, y0, **kw), 5)),
+             "plan": dataclasses.asdict(pick)}]
+    for C in clusters:
+        alt = sbk.sb_launch_plan(*x0.shape, None, lambda regime, c, t, m, C=C:
+                                 card(regime, c, t, m) if c == C else 0)
+        with sb_forced_plan(lambda pl: alt):
+            x_alt = sbk.fused_sb_kernel(Jc, x0, y0, **kw)
+            ms = statistics.median(cuda_ms(
+                lambda: sbk.fused_sb_kernel(Jc, x0, y0, **kw), 5))
+        check(torch.equal(x_alt, x_pick), f"plan {alt} is not bitwise "
+              f"equal to the pick {pick}")
+        rows.append({"cluster": C, "pick": False, "ms": ms,
+                     "plan": dataclasses.asdict(alt)})
+    return {"plan_alternatives": rows, "variant": "bSB", "steps": steps,
+            "pick_fastest": rows[0]["ms"] <= min(r["ms"] for r in rows)}
+
+
 def phase_sb_timing():
     """Each SB variant's kernel (median of 5, CUDA events, after a warm-up;
-    block_r 8) and plain version (median of 3) at both compare shapes, the
-    bound (all operations, and the real spins' alone: sum over problems of
-    2·R·n²·T), then one end-to-end sb-jax solve at the Gset shape. Returns
-    the Gset-shape rows."""
-    import statistics
+    the plan's default block_r) and plain version (median of 3 dense, one
+    call at Gset) at both
+    main shapes, the bound (all operations, and the real spins' alone: sum
+    over problems of 2·R·n²·T), the launch plan with its instance's
+    registers and spills; at the Gset shape the products-only yardstick
+    (400 f32 products (256, 2048) @ (2048, 2048), TF32 off) and the
+    card's cluster capacity; the kernel alone on the 7000-spin graph; the
+    plan's pick against other cluster sizes (``SB_PLAN_ALTERNATIVES``);
+    then one end-to-end sb-jax solve at the Gset shape. Returns the
+    Gset-shape rows."""
+    import torch
 
     from repro_torch.api import ProblemSuite, solve_suite
+    from repro_torch.kernels import sb_kernel as sbk
     from repro_torch.kernels.sb_kernel import (KERNEL_NAMES, SB_VARIANTS,
                                                fused_sb_kernel, sb_reference)
     rows = {}
-    for label, problems, runs, block in sb_cases()[:2]:
+    cases = {label: case for label, *case in sb_cases()}
+    for label in ("maxcut_dense", "gset", "gset_7000"):
+        problems, runs, block, steps = cases[label]
         J, Jc, x0, y0, n_true = sb_inputs(problems, runs, block)
         P, R, N = x0.shape
-        ops = 2.0 * P * R * N * N * SB_STEPS
-        real_ops = sum(2.0 * R * n * n * SB_STEPS for n in n_true)
+        ops = 2.0 * P * R * N * N * steps
+        real_ops = sum(2.0 * R * n * n * steps for n in n_true)
         nbytes = 4 * (Jc.numel() + 3 * x0.numel())
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = ops / PEAK_OPS["float32"] * 1e3
+        plan = sb_plan_row(x0)
         for variant in SB_VARIANTS:
-            kw = dict(variant=variant, n_steps=SB_STEPS, dt=0.5, a0=1.0)
-            k = cuda_ms(lambda: fused_sb_kernel(Jc, x0, y0, block_r=8, **kw),
-                        5)
-            pl = cuda_ms(lambda: sb_reference(Jc, x0, y0, **kw), 3)
+            kw = dict(variant=variant, n_steps=steps, dt=0.5, a0=1.0)
+            k = cuda_ms(lambda: fused_sb_kernel(Jc, x0, y0, **kw), 5)
+            # the plain version at 7000 spins takes seconds a call; the
+            # compare phase has held it against the kernel there
+            # (one call after the warm-up at Gset, where a call takes 20-30 s)
+            pl = (cuda_ms(lambda: sb_reference(Jc, x0, y0, **kw),
+                          3 if label == "maxcut_dense" else 1)
+                  if label != "gset_7000" else None)
             row = {"name": KERNEL_NAMES[variant], "shape": [P, R, N],
-                   "block_r": 8, "blocks": P * -(-R // 8),
-                   "steps": SB_STEPS, "ms": statistics.median(k), "ms_all": k,
-                   "plain_ms": statistics.median(pl), "plain_ms_all": pl,
+                   "plan": plan, "steps": steps,
+                   "ms": statistics.median(k), "ms_all": k,
+                   "plain_ms": statistics.median(pl) if pl else None,
+                   "plain_ms_all": pl,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "operations": ops, "bytes": nbytes,
@@ -721,6 +851,33 @@ def phase_sb_timing():
             emit({"phase": "timing", "shape_of": label, **row})
             if label == "gset":
                 rows[variant] = row
+        if label == "gset":
+            check(plan["spill_stores"] == 0 and plan["spill_loads"] == 0,
+                  f"the Gset-shape instance spills: {plan}")
+            # a yardstick only: the port never calls it, and no single
+            # library call computes an SB integration (library_ms is null)
+            a = torch.randn(R, N, device="cuda")
+            b = torch.randn(N, N, device="cuda")
+
+            def products():
+                for _ in range(steps):
+                    torch.matmul(a, b)
+            prod = cuda_ms(products, 3)
+            lib = sbk._library()
+            capacity = {c: lib.sb_cluster_capacity(1, c, plan["threads"],
+                                                   plan["smem_bytes"])
+                        for c in range(1, sbk.MAX_CLUSTER + 1)}
+            emit({"phase": "timing", "shape_of": label,
+                  "products_only_ms": statistics.median(prod),
+                  "products_only_ms_all": prod,
+                  "what": f"{steps} x torch.matmul ({R}, {N}) @ ({N}, {N}) "
+                          "float32, TF32 off",
+                  "cluster_capacity_at_plan_geometry": capacity})
+    for label, clusters in SB_PLAN_ALTERNATIVES.items():
+        problems, runs, block, steps = cases[label]
+        _, Jc, x0, y0, _ = sb_inputs(problems, runs, block)
+        emit({"phase": "timing", "shape_of": label,
+              **sb_plan_alternatives(Jc, x0, y0, steps, clusters)})
     rep = solve_suite(ProblemSuite([duel_problem()]), solver="sb-jax",
                       runs=SB_RUNS, seed=SEED, torch_device="cuda",
                       oracle=False, warmup=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -68,6 +69,32 @@ def build(source: str) -> Path:
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)        # atomic: a concurrent build sees all or none
     return out
+
+
+def ptxas_report(source: str) -> dict[str, dict[str, int]]:
+    """Registers and spill bytes of each kernel function of
+    ``csrc/<source>``, from the ``-Xptxas -v`` log kept beside its library:
+    ``{mangled name: {"registers", "spill_stores", "spill_loads"}}``."""
+    log = library_path(source).with_suffix(".log")
+    report: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            report[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name]["spill_stores"] = int(m.group(1))
+            report[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m.group(1))
+    return report
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -6,7 +6,9 @@ launches ``csrc/sb_kernel.cu`` (built with ``nvcc`` at first use, see
 ``kernels/build.py``) on the current stream, or raises; it never falls back.
 On CPU tensors it runs ``sb_reference``, the plain version, which the CPU
 tests hold against the reference and ``chip_smoke.py`` holds the kernel
-against on the card.
+against on the card. The launch geometry (thread-block clusters that split
+the spins, sized so that every cluster is on the card at once) comes from
+``sb_launch_plan``, pure arithmetic that the CPU tests check.
 
 One launch runs the whole integration: ``n_steps`` symplectic steps of
 (Goto et al.; SNIPPETS.md Snippet 2)
@@ -38,6 +40,7 @@ spins in ~15% of runs under another sum order, with the same energies).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -45,12 +48,26 @@ import torch
 from ..core.binarize import sign_pm1
 
 SB_VARIANTS = ("aSB", "bSB", "dSB")
-#: runs per block. At the Gset shape (P=1, R=256) this gives 32 blocks for
-#: 132 SMs; the runs are independent, so block_r changes no result.
-DEFAULT_BLOCK_R = 8
-#: largest spin count the kernel takes (8 spins a thread at 256 threads;
-#: Gset's N = 2000 pads to 2048)
-MAX_N = 2048
+#: runs per cluster. None: the plan takes the fewest runs per cluster (in
+#: whole 4-run thread tiles) that put every cluster on the card at once;
+#: at the Gset shape (P=1, R=256, N=2048) on an H100 that is 7 clusters of
+#: 16 CTAs, 40 runs each. The runs are independent, so block_r changes no
+#: result.
+DEFAULT_BLOCK_R = None
+#: runs per CTA where Jc^T stays resident in shared memory (small N)
+RESIDENT_BLOCK_R = 16
+#: largest spin count the kernel takes (a cluster of 16 CTAs of 512 spins)
+MAX_N = 8192
+#: the launch geometry's limits, as ``csrc/sb_kernel.cu`` checks them
+SMEM_MAX = 232448          # opt-in shared memory of one block on sm_90
+MAX_THREADS = 320          # the kernel's __launch_bounds__
+MAX_CLUSTER = 16           # above 8 a non-portable cluster size
+RUNS_PER_PASS_MAX = 64
+#: the plan's cost model of one step on an H100: f32 lane operations a
+#: second an SM reaches in the ordered sum with 8 warps or more (128 lanes
+#: at 1.98 GHz, ~70% issued), and the L2's bytes a second
+SM_LANE_OPS = 128 * 1.98e9 * 0.7
+L2_BYTES = 3.5e12
 SOURCE = "sb_kernel.cu"
 
 _VARIANT_CODE = {"aSB": 0, "bSB": 1, "dSB": 2}
@@ -131,28 +148,211 @@ def sb_reference(Jc: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, *,
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class SBLaunchPlan:
+    """The SB kernel's launch geometry (``sb_launch_plan``). A cluster of
+    ``cluster`` CTAs owns ``block_r`` runs of one problem and integrates
+    them in passes of ``runs_per_pass``; CTA c owns spins [c*S, (c+1)*S)
+    with S = ``spins_per_cta``. Each thread owns 4 spins x 4 runs. The
+    first nine fields are what ``sb_integrate`` takes and checks."""
+    regime: str             # "resident" (Jc^T in shared memory) or "cluster"
+    cluster: int
+    block_r: int
+    runs_per_pass: int
+    spins_per_cta: int
+    tile_j: int             # rows of Jc^T a ring stage (0: resident)
+    stages: int             # ring depth (0: resident)
+    threads: int
+    smem_bytes: int
+    ctas: int
+    waves: int              # rounds of clusters the card runs one after another
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _smem(regime: str, N: int, S: int, rc: int, tj: int, stages: int) -> int:
+    pub = 2 * S * rc                      # the double-buffered drive table
+    if regime == "resident":
+        return 4 * (N * S + pub)
+    # the ring, the staged drive tiles, the drive table, an mbarrier a stage
+    return 4 * (stages * tj * S + 2 * tj * rc + pub) + 8 * stages
+
+
+def _cluster_shapes(N: int, C: int, rc_max: int):
+    """Per-CTA geometries of a cluster of C over N spins, most runs a pass
+    first, then the deepest tiles and ring that fit: (rc, S, tj, stages,
+    threads, smem). S is a multiple of tj and no CTA is empty."""
+    for rc in range(rc_max, 0, -4):
+        for tj in (128, 64, 32, 16, 8):
+            S = _round_up(-(-N // C), tj)
+            threads = (S // 4) * (rc // 4)
+            if -(-N // S) < C or threads > MAX_THREADS:
+                continue
+            for stages in (4, 3, 2):
+                smem = _smem("cluster", N, S, rc, tj, stages)
+                if smem <= SMEM_MAX:
+                    yield rc, S, tj, stages, threads, smem
+                    break
+            else:
+                continue
+            break
+
+
+def sb_launch_plan(P: int, R: int, N: int, block_r: int | None,
+                   capacity) -> SBLaunchPlan:
+    """Launch geometry of the SB kernel for Jc (P,N,N) and x0 (P,R,N).
+
+    Pure arithmetic on the shape and ``capacity(regime, cluster, threads,
+    smem_bytes)``, the clusters the card holds at once (``sb_card_plan``
+    asks the CUDA runtime). The C side checks the plan. Jc^T stays
+    resident in one CTA's shared memory where it fits (N up to ~220,
+    ``RESIDENT_BLOCK_R`` runs a CTA unless ``block_r`` says otherwise).
+    Otherwise the spins are split over a cluster of C CTAs,
+    each streaming its panel of Jc^T in tiles of ``tile_j`` rows through a
+    ring of ``stages``, each filled by one bulk copy. ``block_r`` is the
+    runs per cluster; None takes the fewest that fit every cluster in one
+    wave. Among the cluster sizes and per-CTA shapes that fit 320 threads
+    and the shared memory (runs a pass a multiple of 4, at most 64), the
+    plan takes the least modelled step time (the slowest CTA's ordered
+    sums plus the L2 traffic of Jc^T), then the least traffic.
+    """
+    if block_r is not None and int(block_r) < 1:
+        raise ValueError(f"block_r must be >= 1, got {block_r}")
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"the SB kernel supports 1 <= N <= {MAX_N}, "
+                         f"got {N}")
+    if P < 1 or R < 1:
+        raise ValueError(f"need P >= 1 and R >= 1, got P={P}, R={R}")
+
+    br = RESIDENT_BLOCK_R if block_r is None else int(block_r)
+    rc = min(_round_up(min(br, R), 4), RUNS_PER_PASS_MAX)
+    S = _round_up(N, 4)
+    smem = _smem("resident", N, S, rc, 0, 0)
+    threads = (S // 4) * (rc // 4)
+    if threads <= MAX_THREADS and smem <= SMEM_MAX:
+        ctas = P * -(-R // br)
+        cap = max(capacity("resident", 1, threads, smem), 1)
+        return SBLaunchPlan("resident", 1, br, rc, S, 0, 0, threads, smem,
+                            ctas, -(-ctas // cap))
+
+    best, best_key = None, None
+    for C in range(1, MAX_CLUSTER + 1):
+        for rc, S, tj, stages, threads, smem in _cluster_shapes(
+                N, C, RUNS_PER_PASS_MAX):
+            cap = capacity("cluster", C, threads, smem)
+            if cap < 1:
+                continue
+            if block_r is None:  # the fewest runs a cluster for one wave,
+                br = -(-R // max(cap // P, 1))  # whole 4-run thread tiles
+                br = _round_up(br, 4) if R >= 4 else br
+            else:
+                br = int(block_r)
+            rc_used = min(rc, _round_up(min(br, R), 4))
+            clusters = P * -(-R // br)
+            waves = -(-clusters // cap)
+            passes = -(-br // rc_used)
+            threads_used = (S // 4) * (rc_used // 4)
+            # an SM issues at its rate with 8 warps or more, in proportion
+            # below that
+            rate = SM_LANE_OPS * min(threads_used, 256) / 256
+            compute = waves * passes * rc_used * S * N * 2 / rate
+            traffic = clusters * C * S * _round_up(N, tj) * 4
+            # the copies and the sums overlap only in part: add them
+            key = (compute + traffic / L2_BYTES, traffic, C)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = SBLaunchPlan(
+                    "cluster", C, br, rc_used, S, tj, stages, threads_used,
+                    _smem("cluster", N, S, rc_used, tj, stages),
+                    clusters * C, waves)
+    if best is None:
+        raise ValueError(f"no SB launch plan for P={P}, R={R}, N={N}, "
+                         f"block_r={block_r}")
+    return best
+
+
+_REGIME_CODE = {"resident": 0, "cluster": 1}
+#: the kernel function that runs each regime, as ``-Xptxas -v`` names it
+KERNEL_FUNCTION = {"resident": "sb_resident", "cluster": "sb_cluster"}
+
+
+def _panels(Jc: torch.Tensor, plan: SBLaunchPlan) -> tuple[torch.Tensor, int]:
+    """Jc^T cut into the plan's per-CTA panels: (P, cluster, rows, S) with
+    ``panels[p, c, j, s] = Jc[p, c*S + s, j]``, zero past N, so that a tile
+    of a CTA's columns is one contiguous copy and neighbouring threads
+    (neighbouring spins) read neighbouring words. ``rows`` is N (resident)
+    or N rounded up to whole tiles."""
+    P, N, _ = Jc.shape
+    C, S = plan.cluster, plan.spins_per_cta
+    rows = N if plan.regime == "resident" else _round_up(N, plan.tile_j)
+    padded = Jc.new_zeros((P, C * S, rows))
+    padded[:, :N, :N] = Jc
+    return padded.view(P, C, S, rows).transpose(-1, -2).contiguous(), rows
+
+
+_capacity_cache: dict[tuple, int] = {}
+
+
+def _card_capacity(lib: ctypes.CDLL, device: torch.device):
+    """``capacity`` for ``sb_launch_plan`` from the CUDA runtime
+    (``cudaOccupancyMaxActiveClusters``): the clusters of
+    a geometry that the card holds at once (0 where none fits), cached."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+
+    def capacity(regime: str, cluster: int, threads: int,
+                 smem_bytes: int) -> int:
+        key = (index, regime, cluster, threads, smem_bytes)
+        if key not in _capacity_cache:
+            with torch.cuda.device(index):
+                n = lib.sb_cluster_capacity(_REGIME_CODE[regime], cluster,
+                                            threads, smem_bytes)
+            if n < 0:
+                raise RuntimeError(f"sb_cluster_capacity({regime}, "
+                                   f"{cluster}, {threads}, {smem_bytes}) "
+                                   f"failed: cudaError {-n}")
+            _capacity_cache[key] = n
+        return _capacity_cache[key]
+    return capacity
+
+
 def _library() -> ctypes.CDLL:
     from . import build
     lib = build.load(SOURCE)
     fn = lib.sb_integrate
     if fn.argtypes is None:
         i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, f, f, p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, f, f,
+                       i, i, i, i, i, i, i, i, i, p]
         fn.restype = i
+        cap = lib.sb_cluster_capacity
+        cap.argtypes = [i, i, i, i]
+        cap.restype = i
     return lib
+
+
+def sb_card_plan(P: int, R: int, N: int, block_r: int | None = None,
+                 device: str | torch.device = "cuda") -> SBLaunchPlan:
+    """The plan ``fused_sb_kernel`` launches on ``device``: ``sb_launch_plan``
+    with the card's own cluster capacity."""
+    device = torch.device(device)
+    return sb_launch_plan(P, R, N, block_r,
+                          capacity=_card_capacity(_library(), device))
 
 
 def fused_sb_kernel(Jc: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
                     *, variant: str = "bSB", n_steps: int = 400,
                     dt: float = 0.5, a0: float = 1.0,
-                    block_r: int | None = None) -> torch.Tensor:
+                    block_r: int | None = DEFAULT_BLOCK_R) -> torch.Tensor:
     """Whole SB integration of Jc (P,N,N) float32 from x0, y0 (P,R,N)
     float32 -> x_final (P,R,N). CUDA tensors launch the kernel (one launch
-    per call); CPU tensors run the plain version. ``block_r`` (runs per
-    block, default ``DEFAULT_BLOCK_R``) changes no result."""
+    per call, its geometry from ``sb_launch_plan``); CPU tensors run the
+    plain version. ``block_r`` (runs per cluster, default
+    ``DEFAULT_BLOCK_R``) changes no result."""
     check_variant(variant)
-    block_r = DEFAULT_BLOCK_R if block_r is None else int(block_r)
-    if block_r < 1:
+    if block_r is not None and int(block_r) < 1:
         raise ValueError(f"block_r must be >= 1, got {block_r}")
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
@@ -183,18 +383,20 @@ def fused_sb_kernel(Jc: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
     if P == 0 or R == 0 or N == 0:
         return x0.clone()
 
+    plan = sb_card_plan(P, R, N, block_r, Jc.device)
     lib = _library()
-    # the kernel reads Jc^T so that neighbouring threads (neighbouring
-    # spins i) read neighbouring words of one row j
-    JT = Jc.transpose(-1, -2).contiguous()
+    JT, rows = _panels(Jc, plan)
     out = torch.empty_like(x0)
     inv = _f32(1.0 / n_steps) if n_steps else 0.0
     err = lib.sb_integrate(
         JT.data_ptr(), x0.data_ptr(), y0.data_ptr(), out.data_ptr(), P, R, N,
-        _VARIANT_CODE[variant], block_r, int(n_steps), _f32(a0 * dt),
-        _f32(dt), _f32(a0), inv,
+        rows, _VARIANT_CODE[variant], int(n_steps), _f32(a0 * dt), _f32(dt),
+        _f32(a0), inv, _REGIME_CODE[plan.regime], plan.cluster, plan.block_r,
+        plan.runs_per_pass, plan.spins_per_cta, plan.tile_j, plan.stages,
+        plan.threads, plan.smem_bytes,
         torch.cuda.current_stream(Jc.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"sb_integrate launch failed: cudaError {err}")
+        raise RuntimeError(f"sb_integrate refused or failed to launch {plan}: "
+                           f"cudaError {err}")
     launches[KERNEL_NAMES[variant]] += 1
     return out

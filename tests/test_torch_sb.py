@@ -342,7 +342,7 @@ def test_wrapper_rules_on_cpu():
         sbk.fused_sb_kernel(J.to("meta"), z.to("meta"), z.to("meta"))
     with pytest.raises(ValueError, match="x0 and y0"):
         simulated_bifurcation_jax_runs(J.numpy(), n_restarts=4, x0=z, **CPU)
-    assert sbk.MAX_N == 2048                 # Gset N = 2000 pads to 2048
+    assert sbk.MAX_N == 8192       # Gset-sized graphs beyond 2048 spins
 
 
 def test_ordered_matvec_is_a_matvec_in_one_fixed_order():
@@ -377,3 +377,154 @@ def test_sb_kernel_source_carries_its_notes():
     assert "src/repro/kernels/sb_kernel.py:79" in src
     assert "__fmul_rn" in src and "use_fast_math" in src
     assert "atomic" not in src.replace("No atomics", "")
+    # the cluster design: spins split over a thread-block cluster, the
+    # drive exchanged through distributed shared memory, the launch's
+    # cluster checked against what the card can co-schedule
+    assert "thread-block clusters along the spins" in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "cudaOccupancyMaxActiveClusters" in src
+    assert "ld.shared::cluster" in src and "cluster.sync()" in src
+    assert "12.8 ms" in src and "25.6 ms" in src     # bound and 2x ceiling
+
+
+# -- the launch plan (pure Python; the C side checks it) ---------------------
+
+PLAN_SHAPES = [(4, 256, 64), (1, 256, 2048), (3, 100, 37), (2, 50, 300),
+               (1, 32, 7000)]
+
+#: clusters of C CTAs (one CTA an SM) that an H100 80GB HBM3 holds at once,
+#: by C, as cudaOccupancyMaxActiveClusters reports them (chip_smoke.py
+#: prints them): clusters stay within one GPC, so 8 CTAs fit 15 times and
+#: 10-16 seven times, not 132 / C. A fake of the card for the plan.
+H100_CLUSTER_CAPACITY = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15,
+                         8: 15, 9: 9, **{c: 7 for c in range(10, 17)}}
+
+
+def h100(regime, cluster, threads, smem_bytes):
+    return H100_CLUSTER_CAPACITY[cluster]
+
+
+def h100_plan(P, R, N, block_r=None):
+    return sbk.sb_launch_plan(P, R, N, block_r, h100)
+
+
+def _owners(plan, P, R, N):
+    """How many (CTA, thread, tile slot) of the plan own each (problem, run,
+    spin): the kernel's mapping, spin = c*S + 4*gs + s and run =
+    cy*block_r + pass*rc + 4*gr + q, masked to N and to the cluster's runs."""
+    count = np.zeros((P, R, N), np.int64)
+    S, rc, br = plan.spins_per_cta, plan.runs_per_pass, plan.block_r
+    gs = np.arange(S // 4)
+    gr = np.arange(rc // 4)
+    for p in range(P):
+        for cy in range(-(-R // br)):
+            r_begin, r_end = cy * br, min(cy * br + br, R)
+            for c0 in range(r_begin, r_end, rc):
+                for c in range(plan.cluster):
+                    i = (c * S + 4 * gs[:, None] + np.arange(4)).ravel()
+                    r = (c0 + 4 * gr[:, None] + np.arange(4)).ravel()
+                    i, r = i[i < N], r[r < r_end]
+                    np.add.at(count[p], np.ix_(r, i), 1)
+    return count
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
+@pytest.mark.parametrize("block_r", [None, 4, 16])
+def test_launch_plan_covers_every_spin_and_run_once(shape, block_r):
+    P, R, N = shape
+    plan = h100_plan(P, R, N, block_r)
+    assert np.all(_owners(plan, P, R, N) == 1)
+    assert plan.smem_bytes <= 232448 and plan.cluster <= 16
+    assert plan.threads == (plan.spins_per_cta // 4) * \
+        (plan.runs_per_pass // 4) <= sbk.MAX_THREADS
+    assert plan.runs_per_pass % 4 == 0
+    assert (plan.cluster - 1) * plan.spins_per_cta < N     # no empty CTA
+    if plan.regime == "cluster":
+        assert plan.spins_per_cta % plan.tile_j == 0
+        assert 2 <= plan.stages <= 4
+    else:
+        assert plan.cluster == 1 and plan.spins_per_cta >= N
+    assert plan.ctas == P * -(-R // plan.block_r) * plan.cluster
+
+
+def test_launch_plan_fills_the_card_in_one_wave_at_gset():
+    """At the Gset shape the default plan puts every cluster on the card at
+    once. An H100 holds 7 clusters of 10-16 CTAs or 15 of 8 (clusters stay
+    within a GPC), so one wave holds at most 112-120 CTAs; 16 clusters of 8
+    (128 CTAs) would need two waves and take twice as long."""
+    plan = h100_plan(1, 256, 2048)
+    assert plan.regime == "cluster" and plan.waves == 1
+    assert plan.ctas >= 112
+    assert plan.runs_per_pass >= 16          # each Jc^T word feeds >= 16 runs
+    # 16 runs a cluster of 8 would make 16 clusters: one more than fit
+    assert -(-256 // 16) > H100_CLUSTER_CAPACITY[8]
+    # the dense Max-Cut shape keeps Jc^T resident
+    assert h100_plan(4, 256, 64).regime == "resident"
+
+
+def test_launch_plan_follows_the_card_capacity():
+    """The plan reads the clusters a card holds at once from ``capacity``:
+    with room for every cluster it keeps one wave; where no cluster fits it
+    finds no plan."""
+    roomy = sbk.sb_launch_plan(1, 256, 2048, None, lambda *a: 1000)
+    assert roomy.waves == 1
+    with pytest.raises(ValueError, match="no SB launch plan"):
+        sbk.sb_launch_plan(1, 256, 2048, None, lambda *a: 0)
+    # an explicit block_r is kept as the runs per cluster, in as many waves
+    # as it takes
+    plan = h100_plan(1, 256, 2048, block_r=8)
+    assert plan.block_r == 8 and plan.ctas == 32 * plan.cluster
+
+
+def test_launch_plan_refuses_what_it_cannot_run():
+    with pytest.raises(ValueError, match="N <= 8192"):
+        h100_plan(1, 4, sbk.MAX_N + 1)
+    for bad in (0, -3):
+        with pytest.raises(ValueError, match="block_r"):
+            h100_plan(1, 4, 64, bad)
+    with pytest.raises(ValueError, match="P >= 1"):
+        h100_plan(0, 4, 64)
+    # the largest N has a plan
+    assert h100_plan(1, 256, sbk.MAX_N).regime == "cluster"
+
+
+@pytest.mark.parametrize("shape", [(2, 10, 37), (2, 50, 300)])
+def test_panels_are_jc_transposed_per_cta(shape):
+    """The wrapper's Jc^T layout: panels[p, c, j, s] = Jc[p, c*S + s, j],
+    zero past N, rows whole tiles."""
+    P, R, N = shape
+    rng = np.random.default_rng(1)
+    Jc = torch.as_tensor(rng.standard_normal((P, N, N)), dtype=torch.float32)
+    plan = h100_plan(P, R, N)
+    panels, rows = sbk._panels(Jc, plan)
+    C, S = plan.cluster, plan.spins_per_cta
+    assert panels.shape == (P, C, rows, S) and panels.is_contiguous()
+    full = panels.permute(0, 1, 3, 2).reshape(P, C * S, rows)
+    assert torch.equal(full[:, :N, :N], Jc)
+    assert not full[:, N:].any() and not full[:, :, N:].any()
+    if plan.regime == "cluster":
+        assert rows % plan.tile_j == 0 and rows - N < plan.tile_j
+
+
+@pytest.mark.parametrize("variant", sbk.SB_VARIANTS)
+def test_lifted_limit_matches_reference_at_2100(variant):
+    """N = 2100, past the first kernel's 2048: the port (its plain version
+    on the CPU) and the reference's sb_reference from the same numpy
+    x0 / y0 agree to |dx| <= 1e-5 after 5 steps, with identical signs
+    wherever |x| > 1e-3 (the two sum dv in different orders)."""
+    from repro_torch.problems import gset_problem
+    problem = gset_problem(2100, seed=1209, degree=6.0)
+    J = problem.J_levels[None].astype(np.float64)
+    Jc = sb_scaled_couplings(J, [problem.n])
+    rng = np.random.default_rng(21)
+    x0 = rng.uniform(-0.1, 0.1, (1, 4, 2100)).astype(np.float32)
+    y0 = rng.uniform(-0.1, 0.1, (1, 4, 2100)).astype(np.float32)
+    ref = np.asarray(r_sb_reference(Jc, x0, y0, variant=variant, n_steps=5))
+    out = sbk.fused_sb_kernel(torch.as_tensor(Jc), torch.as_tensor(x0),
+                              torch.as_tensor(y0), variant=variant,
+                              n_steps=5).numpy()
+    assert out.shape == ref.shape == (1, 4, 2100)
+    assert np.abs(out - ref).max() <= 1e-5
+    big = np.abs(ref) > 1e-3
+    assert np.array_equal(np.sign(out[big]), np.sign(ref[big]))
