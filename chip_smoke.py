@@ -6,8 +6,15 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits nonzero:
   1. build    — compile the port's CUDA source with nvcc.
-  2. compare  — each kernel variant against its plain PyTorch version on the
-                card, at the main path's shape and at ragged shapes.
+  2. compare  — each anneal variant against its plain PyTorch version on
+                the card, at the main path's shape (8, 1024, 64), at (4,
+                1000, 64), ragged (4, 1000, 37), N=160 (J^T in shared
+                memory) and N=1024 (streamed): under the card's launch
+                plan on two calls and under a second plan (bf16 / int8 at
+                N=1024 have one geometry only); bitwise on the unit
+                schedule, bf16 bitwise under perturbation too, f32 within
+                its limits; a short unit-schedule anneal of 2^20 runs (more
+                run blocks than grid.y takes); unrunnable plans refused.
   3. main     — ``repro_torch.api.solve_suite`` on the paper's 64-spin suite
                 (perturbation, gd, and perturbation with bf16 operands),
                 launch counts read around exactly that run, SR/TTS/ETS.
@@ -15,8 +22,11 @@ exits nonzero:
                 and the engine's autotuner (block_r only; a cached 'scan'
                 entry must not move the plan off the kernel).
   5. timing   — kernels and plain versions at the main path's shape and at
-                the fig5-grid shape, bounds, and one end-to-end dispatch of
-                the grid.
+                the fig5-grid shape, with the launch plan, registers and
+                spills, bounds and the products-only yardstick
+                (library_ms), at the grid also under every runs-per-block
+                the plan accepts; one end-to-end dispatch of the grid with
+                the kernel's share of its wall.
   6. sb_compare — each simulated-bifurcation variant's kernel against its
                 plain version on the card: the c0-scaled dense Max-Cut slice
                 (4, 256, 64), the Gset duel graph (1, 256, 2048), ragged
@@ -41,7 +51,8 @@ exits nonzero:
                 end-to-end sb-jax solve at the Gset shape.
 Then the card's name and power limit, the kernels line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
-result.
+result. ``--phases compare,timing`` (say) runs the build and those phases
+only, and ends with the card's name and a ``{"phases_run": [...]}`` line.
 """
 from __future__ import annotations
 
@@ -168,19 +179,59 @@ def phase_build():
                  "Function properties" in ln] if log.exists() else []
         emit({"phase": "build", "build_s": secs, "source": src,
               "ptxas": ptxas})
+    # the tensor-core variants run on the tensor cores: every anneal_mma
+    # instance holds HMMA (bf16) or IMMA (int8) instructions
+    sass = build.sass_opcode_counts(ising_anneal.SOURCE, ("HMMA", "IMMA",
+                                                          "FFMA"))
+    emit({"phase": "build", "source": ising_anneal.SOURCE,
+          "sass_counts": sass})
+    mma = {name: c for name, c in sass.items() if "anneal_mma" in name}
+    check(len(mma) == 6, f"expected 6 anneal_mma instances, got {mma}")
+    for name, c in mma.items():
+        op = "HMMA" if "anneal_mmaILi1E" in name else "IMMA"
+        check(c[op] > 0, f"{name} holds no {op} instruction: {c}")
 
 
-def compare_one(J, v0, dev, pert, j_dtype, block_r):
-    """Kernel vs plain version on the same inputs. Returns the stats."""
+def alternative_plan(P, R, N, j_dtype, pick):
+    """A second launch plan for the shape, unlike the card's pick: another
+    regime where one takes the shape, else another runs-per-block; None
+    where the kernel has one geometry only (bf16 / int8 at N=1024: 16
+    warps of 64 spins fill a block of 512 threads, and J^T does not fit
+    in shared memory)."""
+    from repro_torch.kernels import ising_anneal as ka
+    sms = ka.card_sm_count()
+    options = ([{"regime": r} for r in ka.REGIMES if r != pick.regime] +
+               [{"block_r": b} for b in ka.anneal_block_r_candidates(
+                   P, R, N, j_dtype, sms) if b != pick.block_r])
+    for kw in options:
+        try:
+            alt = ka.anneal_launch_plan(P, R, N, j_dtype, sms, **kw)
+        except ValueError:
+            continue
+        if alt != pick:
+            return alt
+    return None
+
+
+def compare_one(J, v0, dev, pert, j_dtype):
+    """Kernel under the card's plan (twice) and a second plan, against the
+    plain version on the same inputs. Returns the stats."""
     import numpy as np
     import torch
 
     from repro_torch.core.hamiltonian import ising_energy
-    from repro_torch.kernels.ising_anneal import (fused_anneal_kernel,
+    from repro_torch.kernels.ising_anneal import (card_plan,
+                                                  fused_anneal_kernel,
                                                   fused_anneal_torch)
     from repro_torch.metrics.success import success_rate
-    vk = fused_anneal_kernel(J, v0, dev=dev, pert=pert, block_r=block_r,
-                             j_dtype=j_dtype)
+    P, R, N = v0.shape
+    pick = card_plan(P, R, N, j_dtype)
+    alt = alternative_plan(P, R, N, j_dtype, pick)
+    kw = dict(dev=dev, pert=pert, j_dtype=j_dtype)
+    vk = fused_anneal_kernel(J, v0, plan=pick, **kw)
+    vk_again = fused_anneal_kernel(J, v0, plan=pick, **kw)
+    vk_alt = None if alt is None else fused_anneal_kernel(J, v0, plan=alt,
+                                                          **kw)
     vp = fused_anneal_torch(J, v0, dev, pert, j_dtype)
     torch.cuda.synchronize()
     check(vk.shape == v0.shape and bool(torch.isfinite(vk).all()),
@@ -199,7 +250,12 @@ def compare_one(J, v0, dev, pert, j_dtype, block_r):
     sr_p = success_rate(ep, best)
     return {
         "j_dtype": j_dtype, "shape": list(v0.shape),
+        "plans": {"pick": dataclasses.asdict(pick),
+                  "second": alt and dataclasses.asdict(alt)},
         "bitwise": bool(torch.equal(vk, vp)),
+        "bitwise_repeat": bool(torch.equal(vk, vk_again)),
+        "bitwise_plans": None if alt is None else bool(torch.equal(vk,
+                                                                   vk_alt)),
         "max_abs_err": float(dv.max()),
         "max_abs_err_agreeing_runs": float(agree_dv.max())
         if agree_dv.numel() else 0.0,
@@ -212,12 +268,34 @@ def compare_one(J, v0, dev, pert, j_dtype, block_r):
     }
 
 
+#: (label, N, problems, runs) of the compare cases past the main path's
+#: shape: N=64 with R not a multiple of any block, ragged N=37, N=160
+#: (J^T in shared memory) and N=1024 (J^T streamed, the kernel's MAX_N)
+COMPARE_CASES = (("n64", 64, 4, 1000), ("n37", 37, 4, 1000),
+                 ("n160", 160, 4, 256), ("n1024", 1024, 2, 64))
+#: (problems, runs, sweeps) of a short unit-schedule anneal at N=64 with
+#: more run blocks than grid.y's 65535 would take under a one-tile plan
+LARGE_R = (1, 1 << 20, 0.25)
+
+
+def second_plan_ok(st, label):
+    """A second plan ran and gave the same bits; where the kernel has one
+    geometry only (bf16 / int8 at N=1024), a second call did."""
+    if st["bitwise_plans"] is None:
+        return label == "n1024" and st["j_dtype"] != "float32"
+    return st["bitwise_plans"]
+
+
 def phase_compare():
-    """Every variant at the main path's shape, plus P=4, R=1000 at N=64
-    (R not a multiple of block_r) and N=37 (ragged spins). Unit schedule:
-    bitwise, every variant. Under the variant's perturbed schedule (f32 and
-    bf16): at most 5% of runs end on other spins, |dv| <= 1e-5 over the runs
-    that agree, per-problem SR within 0.03."""
+    """Every variant at the main path's shape and at ``COMPARE_CASES``,
+    under the card's plan (two calls) and a second plan, and at
+    ``LARGE_R``. Unit schedule: bitwise equal to the plain version, every
+    variant. Under the variant's
+    perturbed schedule: bf16 bitwise equal too (its sums are exact in any
+    order); f32 the same bits under both plans and across calls, and
+    against the plain version (another sum order) at most 5% of runs end
+    on other spins, |dv| <= 1e-5 over the runs that agree, per-problem SR
+    within 0.03."""
     import torch
 
     from repro_torch.api import ProblemSuite
@@ -227,37 +305,84 @@ def phase_compare():
     for j_dtype, (dev, pert) in variants().items():
         cases = [("main", *main_path_inputs(
             ProblemSuite.random(**SUITE), RUNS, SEED, dev))]
-        for n in (64, 37):
-            ps = problem_set(n, 0.5, 4, seed=11)
+        for label, n, p_count, runs in COMPARE_CASES:
+            ps = problem_set(n, 0.5, p_count, seed=11)
             v0 = torch.stack([torch.as_tensor(lfsr_voltage_inits(
-                n, 1000, seed=3 + p)) for p in range(4)])
-            cases.append((f"n{n}", torch.as_tensor(ps.J, device="cuda"),
+                n, runs, seed=3 + p)) for p in range(p_count)])
+            cases.append((label, torch.as_tensor(ps.J, device="cuda"),
                           v0.to("cuda")))
         unit_dev, unit_pert = variants()["int8"]
+        P, R, sweeps = LARGE_R
+        ps = problem_set(64, 0.5, P, seed=13)
+        v0 = torch.as_tensor(lfsr_voltage_inits(64, R, seed=5))[None]
+        st = compare_one(torch.as_tensor(ps.J, device="cuda"), v0.to("cuda"),
+                         dataclasses.replace(unit_dev, anneal_sweeps=sweeps),
+                         unit_pert, j_dtype)
+        emit({"phase": "compare", "case": "large_r", "schedule": "unit",
+              "sweeps": sweeps, **st})
+        check(st["plans"]["pick"]["blocks"] > 65535,
+              f"{j_dtype} at {R} runs: the plan fits grid.y, nothing tested")
+        check(st["bitwise"] and st["bitwise_repeat"] and
+              second_plan_ok(st, "large_r"), f"{j_dtype} at {R} runs: "
+              f"kernel and plain version differ (max {st['max_abs_err']})")
         for label, J, v0 in cases:
             # unit schedule: bitwise, every variant
-            st = compare_one(J, v0, unit_dev, unit_pert, j_dtype, 128)
+            st = compare_one(J, v0, unit_dev, unit_pert, j_dtype)
             emit({"phase": "compare", "case": label, "schedule": "unit", **st})
-            check(st["bitwise"], f"{j_dtype} {label} unit schedule: kernel "
-                  f"and plain version differ (max {st['max_abs_err']})")
+            check(st["bitwise"] and st["bitwise_repeat"] and
+                  second_plan_ok(st, label),
+                  f"{j_dtype} {label} unit schedule: kernel and plain "
+                  f"version differ (max {st['max_abs_err']}, repeat {st['bitwise_repeat']}, "
+                  f"plans {st['bitwise_plans']})")
             if j_dtype == "int8":
                 err_at_main.setdefault(j_dtype, st["max_abs_err"])
                 continue
             # the variant's own perturbed schedule
-            st = compare_one(J, v0, dev, pert, j_dtype, 128)
+            st = compare_one(J, v0, dev, pert, j_dtype)
             emit({"phase": "compare", "case": label,
                   "schedule": "perturbation", **st})
             if label == "main":
                 err_at_main[j_dtype] = st["max_abs_err"]
+            what = f"{j_dtype} {label} perturbation"
+            check(st["bitwise_repeat"] and second_plan_ok(st, label),
+                  f"{what}: kernel not the same bits across calls / plans")
+            if j_dtype == "bfloat16":
+                check(st["bitwise"], f"{what}: kernel and plain version "
+                      f"differ (max {st['max_abs_err']}); bf16 sums are "
+                      "exact, so they must not")
             check(st["runs_differing"] <= 0.05 * st["runs"],
-                  f"{j_dtype} {label}: {st['runs_differing']} of {st['runs']} "
+                  f"{what}: {st['runs_differing']} of {st['runs']} "
                   "runs end on other spins (limit 5%)")
             check(st["max_abs_err_agreeing_runs"] <= 1e-5,
-                  f"{j_dtype} {label}: |dv| {st['max_abs_err_agreeing_runs']} "
+                  f"{what}: |dv| {st['max_abs_err_agreeing_runs']} "
                   "over agreeing runs (limit 1e-5)")
             check(st["max_sr_gap"] <= 0.03,
-                  f"{j_dtype} {label}: SR gap {st['max_sr_gap']} (limit 0.03)")
+                  f"{what}: SR gap {st['max_sr_gap']} (limit 0.03)")
+    check_anneal_refusals(J, v0)
     return err_at_main
+
+
+def check_anneal_refusals(J, v0):
+    """A plan that does not match the shape or that the kernel cannot run
+    is refused by ``ising_anneal`` and the wrapper raises; nothing runs
+    another path instead."""
+    from repro_torch.kernels import ising_anneal as ka
+    dev, pert = variants()["int8"]
+    pick = ka.card_plan(*v0.shape, "int8")
+    refused = {}
+    for field, value in (("smem_bytes", pick.smem_bytes + 16),
+                         ("tiles_per_block", 64),
+                         ("n_pad", pick.n_pad + 64)):
+        try:
+            ka.fused_anneal_kernel(J, v0, dev=dev, pert=pert, j_dtype="int8",
+                                   plan=dataclasses.replace(
+                                       pick, **{field: value}))
+            refused[field] = None
+        except RuntimeError as err:
+            refused[field] = str(err).rsplit(":", 1)[-1].strip()
+    emit({"phase": "compare", "refusals": refused})
+    check(all(refused.values()), f"an unrunnable plan was launched: "
+          f"{refused}")
 
 
 def phase_main(oracle_path):
@@ -368,18 +493,51 @@ def phase_scan(oracle_path):
           "plan_with_cached_scan": dataclasses.asdict(stale)})
 
 
-def time_variant(label, suite, runs, j_dtype, dev, pert):
-    """Kernel (median of 5, CUDA events, after a warm-up) and plain version
+def anneal_plan_row(plan):
+    """The plan with the registers and spill bytes of the kernel instance
+    that runs it (``-Xptxas -v``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ising_anneal as ka
+    fn = ka.kernel_function(plan)
+    (usage,) = [u for name, u in build.ptxas_report(ka.SOURCE).items()
+                if fn in name]
+    return {**dataclasses.asdict(plan), "instance": fn, **usage}
+
+
+def products_ms(P, R, N, steps, dtype):
+    """The products-only yardstick: ``steps`` x torch.matmul (P, R, N) @
+    (P, N, N) in ``dtype`` (TF32 off), median of 3 (CUDA events). No
+    single PyTorch call runs an anneal; this times its products alone."""
+    import torch
+    a = torch.randn(P, R, N, device="cuda", dtype=dtype)
+    b = torch.randn(P, N, N, device="cuda", dtype=dtype)
+
+    def products():
+        for _ in range(steps):
+            torch.matmul(a, b)
+    t = cuda_ms(products, 3)
+    return statistics.median(t), t
+
+
+def time_variant(label, suite, runs, j_dtype, dev, pert, other_plans=False):
+    """Kernel (median of 5, CUDA events around the wrapper call, which
+    lays J out and launches once, after a warm-up) and plain version
     (median of 3) of one variant on the inputs ``solve_suite`` gives the
-    kernel for ``suite``, with the block_r the engine plans, and the bound.
-    The bound counts every operation the launch does, padded spins
-    included (``operations``), and beside it the work of the problems'
-    real spins alone (``real_operations``: sum over problems of
-    2·R·n²·T)."""
+    kernel for ``suite``, with the engine's plan (the launch plan's pick),
+    its instance's registers and spills, the bound and the products-only
+    yardstick (``library_ms``: f32 TF32 off for f32, bf16 for bf16 and
+    int8, which torch's CUDA matmul does not take). The bound counts every
+    operation the launch does, padded spins included (``operations``), and
+    beside it the work of the problems' real spins alone
+    (``real_operations``: sum over problems of 2·R·n²·T). ``other_plans``:
+    the kernel also at every runs-per-block the launch plan accepts
+    (``block_r_ms``, median of 5 each)."""
     import torch
 
     from repro_torch.core.engine import AnnealEngine
     from repro_torch.kernels.ising_anneal import (KERNEL_NAMES,
+                                                  anneal_block_r_candidates,
+                                                  card_plan, card_sm_count,
                                                   fused_anneal_kernel,
                                                   fused_anneal_torch)
     t0 = time.perf_counter()
@@ -389,9 +547,13 @@ def time_variant(label, suite, runs, j_dtype, dev, pert):
     P, R, N = v0.shape
     block_r = AnnealEngine(dev, pert, torch_device="cuda").plan(
         P, R, N, J=J).block_r
+    plan = anneal_plan_row(card_plan(P, R, N, j_dtype, block_r))
     k = cuda_ms(lambda: fused_anneal_kernel(
         J, v0, dev=dev, pert=pert, block_r=block_r, j_dtype=j_dtype), 5)
     p = cuda_ms(lambda: fused_anneal_torch(J, v0, dev, pert, j_dtype), 3)
+    lib_ms, lib_all = products_ms(
+        P, R, N, dev.n_steps,
+        torch.float32 if j_dtype == "float32" else torch.bfloat16)
     ops = 2.0 * P * R * N * N * dev.n_steps
     real_ops = sum(2.0 * R * n * n * dev.n_steps for n in suite.sizes)
     nbytes = J.numel() * J.element_size() + 2 * v0.numel() * 4
@@ -399,7 +561,7 @@ def time_variant(label, suite, runs, j_dtype, dev, pert):
     t_ops = ops / PEAK_OPS[j_dtype] * 1e3
     t_real = real_ops / PEAK_OPS[j_dtype] * 1e3
     row = {"name": KERNEL_NAMES[j_dtype], "shape": [P, R, N],
-           "block_r": block_r, "steps": dev.n_steps,
+           "plan": plan, "steps": dev.n_steps,
            "ms": statistics.median(k), "ms_all": k,
            "plain_ms": statistics.median(p), "plain_ms_all": p,
            "bound_ms": max(t_ops, t_bytes),
@@ -407,34 +569,55 @@ def time_variant(label, suite, runs, j_dtype, dev, pert):
            "operations": ops, "bytes": nbytes,
            "real_operations": real_ops,
            "real_bound_ms": max(t_real, t_bytes),
-           "library_ms": None, "host_setup_s": host_setup_s}
+           "library_ms": lib_ms, "library_ms_all": lib_all,
+           "library_what": f"{dev.n_steps} x torch.matmul ({P}, {R}, {N}) "
+                           f"@ ({P}, {N}, {N}) "
+                           + ("float32, TF32 off" if j_dtype == "float32"
+                              else "bfloat16"),
+           "host_setup_s": host_setup_s}
+    if other_plans:
+        row["block_r_ms"] = {
+            br: statistics.median(cuda_ms(lambda br=br: fused_anneal_kernel(
+                J, v0, dev=dev, pert=pert, block_r=br, j_dtype=j_dtype), 5))
+            for br in anneal_block_r_candidates(P, R, N, j_dtype,
+                                                card_sm_count())}
     emit({"phase": "timing", "shape_of": label, **row})
+    check(plan["spill_stores"] == 0 and plan["spill_loads"] == 0,
+          f"{label} {j_dtype}: the kernel instance spills: {plan}")
     return row
 
 
 def phase_timing():
     """Each variant at the main path's shape (8 problems of 64 spins, 1024
     runs: every spin real) and at the fig5 grid's (400 problems, 16-64
-    spins padded to 64, 300 runs, one bucket); then one end-to-end dispatch
-    of the grid. Returns the main-shape rows."""
+    spins padded to 64, 300 runs, one bucket; there under every
+    runs-per-block the plan accepts too); then one end-to-end dispatch
+    of the grid with the kernel's share of its wall. Returns the
+    main-shape rows."""
     from repro_torch.api import ProblemSuite, solve_suite
     grid = ProblemSuite.grid()
     runs = 300
-    main = {}
+    main, at_grid = {}, {}
     for j_dtype, (dev, pert) in variants().items():
         main[j_dtype] = time_variant("main", ProblemSuite.random(**SUITE),
                                      RUNS, j_dtype, dev, pert)
-        time_variant("fig5_grid", grid, runs, j_dtype, dev, pert)
-    for variant in ("perturbation", "gd"):
+        at_grid[j_dtype] = time_variant("fig5_grid", grid, runs, j_dtype,
+                                        dev, pert, other_plans=True)
+    for variant, j_dtype in (("perturbation", "float32"), ("gd", "int8")):
         rep = solve_suite(grid, solver="engine", runs=runs, seed=SEED,
                           torch_device="cuda", oracle=False, variant=variant,
                           warmup=True)
         check(rep.dispatches == 1 and
               rep.meta["engine_plan"]["path"] == "fused", "grid dispatch")
+        check(rep.meta["engine_plan"]["j_dtype"] == j_dtype,
+              f"grid dispatch ran {rep.meta['engine_plan']}")
+        kernel_s = at_grid[j_dtype]["ms"] / 1e3
         emit({"phase": "timing", "end_to_end": variant,
               "problems": len(grid), "runs": runs, "wall_s": rep.wall_s,
               "first_call_extra_s": rep.compile_s,
               "anneals_per_s": rep.anneals_per_s,
+              "kernel_s": kernel_s, "kernel_share": kernel_s / rep.wall_s,
+              "host_s": rep.wall_s - kernel_s,
               "plan": rep.meta["engine_plan"]})
     return main
 
@@ -888,8 +1071,24 @@ def phase_sb_timing():
     return rows
 
 
-def main() -> int:
+PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
+          "gset", "sb_timing")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run after the build "
+                         "(default: all; the kernels line and the last "
+                         "line are printed only when all ran)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; choose from {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -902,16 +1101,26 @@ def main() -> int:
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "device": torch.cuda.get_device_name(0)})
     phase_build()
-    err = phase_compare()
     with tempfile.TemporaryDirectory() as tmp:
         oracle_path = os.path.join(tmp, "oracle_cache_torch.json")
-        launches = phase_main(oracle_path)
-        phase_scan(oracle_path)
-        timing = phase_timing()
-        sb_err = phase_sb_compare()
-        sb_launches = phase_sb_main(oracle_path)
-        phase_gset()
-        sb_timing = phase_sb_timing()
+        run = {
+            "compare": phase_compare,
+            "main": lambda: phase_main(oracle_path),
+            "scan": lambda: phase_scan(oracle_path),
+            "timing": phase_timing,
+            "sb_compare": phase_sb_compare,
+            "sb_main": lambda: phase_sb_main(oracle_path),
+            "gset": phase_gset,
+            "sb_timing": phase_sb_timing,
+        }
+        out = {name: run[name]() for name in PHASES if name in phases}
+    if set(out) != set(PHASES):
+        print(nvidia_smi(), flush=True)
+        emit({"phases_run": list(out)})
+        return 0
+    err, launches, timing = out["compare"], out["main"], out["timing"]
+    sb_err, sb_launches = out["sb_compare"], out["sb_main"]
+    sb_timing = out["sb_timing"]
 
     kernels = []
     for j_dtype, row in timing.items():
@@ -922,7 +1131,7 @@ def main() -> int:
             "launches": launches[row["name"]],
             "max_abs_err": err[j_dtype], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     for variant, row in sb_timing.items():
         kernels.append({
             "name": row["name"], "route": "cuda",

@@ -20,13 +20,16 @@ Two ways to integrate the chip dynamics:
   4. j_dtype auto-selection: 'int8' when the schedule is identically one
      (``unit_scales``), J is integer levels and drive·dt is a power of two
      (bit-exact fast path); otherwise the device model's compute dtype.
-  5. block_r: autotune-cache hit, else a size heuristic.
+  5. block_r (runs per kernel block): autotune-cache hit, else None: the
+     kernel wrapper launches ``kernels.ising_anneal.anneal_launch_plan``'s
+     pick for the card (the plan is made once, where it is launched).
 
 The autotuner times real (shortened) anneals for each candidate (on CUDA
-the kernel at each block_r; on the CPU the scan path) and
-persists winners to a small JSON cache keyed on (torch device, N, R, P,
-j_dtype, schedule kind). Default path ``~/.cache/repro_torch/
-annealengine.json``, overridden by ``REPRO_TORCH_AUTOTUNE_CACHE``.
+the kernel at each block_r the launch plan accepts; on the CPU the scan
+path) and persists winners to a small JSON cache keyed on (torch device,
+N, R, P, j_dtype, schedule kind, kernel design). Default path
+``~/.cache/repro_torch/annealengine.json``, overridden by
+``REPRO_TORCH_AUTOTUNE_CACHE``.
 """
 from __future__ import annotations
 
@@ -45,7 +48,6 @@ from .annealer import AnnealResult, anneal
 from .device_model import DeviceModel
 from .perturbation import DEFAULT_PERTURBATION, PerturbationConfig, unit_scales
 
-_BLOCK_R_CANDIDATES = (64, 128, 256)
 _CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 _DEFAULT_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
                               "repro_torch", "annealengine.json")
@@ -55,17 +57,11 @@ _DEFAULT_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
 class EnginePlan:
     """A fully-resolved dispatch decision for one (P, R, N) workload."""
     path: str                    # 'scan' | 'fused'
-    block_r: int                 # fused-kernel runs per block (scan ignores)
+    block_r: int | None          # fused-kernel runs per block (None: the
+                                 # launch plan's pick; scan ignores it)
     j_dtype: str                 # 'float32' | 'bfloat16' | 'int8'
     reason: str = ""             # provenance: 'auto', 'cache', 'autotuned',
                                  # 'explicit', 'feature:noise/record'
-
-
-def _next_pow2(x: int) -> int:
-    p = 8
-    while p < x:
-        p *= 2
-    return p
 
 
 def _cache_path() -> str:
@@ -110,8 +106,9 @@ class AnnealEngine:
             sched = "pert"
         else:
             sched = "leak"
+        from ..kernels.ising_anneal import KERNEL_DESIGN
         return (f"{device_key(self.torch_device)}|N={N}|R={R}|P={P}"
-                f"|j={j_dtype}|sched={sched}")
+                f"|j={j_dtype}|sched={sched}|kernel={KERNEL_DESIGN}")
 
     def _auto_j_dtype(self, J: torch.Tensor | None = None) -> str:
         # int8 is bit-exact vs float32 only when (a) the schedule is unit,
@@ -129,7 +126,7 @@ class AnnealEngine:
         """Resolve the dispatch for a (P problems, R runs, N spins) solve.
         ``needs_scan``: noise / trajectory recording."""
         j_dtype = self._auto_j_dtype(J)
-        block_r = min(_next_pow2(R), 256)
+        block_r = None
         if needs_scan:
             return EnginePlan("scan", block_r, j_dtype,
                               reason="feature:noise/record")
@@ -142,18 +139,19 @@ class AnnealEngine:
         # the main path as plain torch ops
         cached = self._cache.get(self._key(P, R, N, j_dtype))
         if cached and cached["path"] == path and self.path != "scan":
-            block_r = int(cached["block_r"])
+            block_r = cached["block_r"]
             reason = "cache"
         return EnginePlan(path, block_r, j_dtype, reason=reason)
 
     # -- autotuner ---------------------------------------------------------
     def autotune(self, P: int, R: int, N: int, seed: int = 0,
-                 candidates=_BLOCK_R_CANDIDATES, probe_sweeps: float = 0.25,
+                 candidates=None, probe_sweeps: float = 0.25,
                  j_dtype: Optional[str] = None) -> EnginePlan:
         """Time shortened anneals of the device's own path and persist the
         winner under the workload key. Per-step cost is schedule
         independent, so the ranking transfers to the full anneal. On CUDA
-        this tunes the kernel's block_r over ``candidates``; the scan path
+        this tunes the kernel's block_r over ``candidates`` (default: every
+        runs-per-block the launch plan accepts); the scan path
         (plain torch ops) is never a candidate there. On the CPU it times
         the scan path alone: there the kernel wrapper runs the plain
         version, whose time says nothing about the kernel."""
@@ -175,9 +173,13 @@ class AnnealEngine:
         if not self.on_cuda:
             t = time_call(lambda: anneal(J, v0, probe_dev, self.perturbation),
                           self.torch_device)
-            results.append((t, "scan", min(_next_pow2(R), 256)))
+            results.append((t, "scan", None))
         else:
-            for br in sorted({min(br, _next_pow2(R)) for br in candidates}):
+            if candidates is None:
+                from ..kernels import ising_anneal as ka
+                candidates = ka.anneal_block_r_candidates(
+                    P, R, N, j_dtype, ka.card_sm_count(self.torch_device))
+            for br in candidates:
                 t = time_call(lambda br=br: kops.fused_anneal(
                     J, v0, probe_dev, self.perturbation, block_r=br,
                     j_dtype=j_dtype), self.torch_device)

@@ -97,6 +97,28 @@ def ptxas_report(source: str) -> dict[str, dict[str, int]]:
     return report
 
 
+def sass_opcode_counts(source: str, opcodes: tuple[str, ...]
+                       ) -> dict[str, dict[str, int]]:
+    """How many SASS instructions of each of ``opcodes`` (e.g. ``HMMA``)
+    each kernel function of ``csrc/<source>``'s built library holds, from
+    ``cuobjdump -sass`` (beside nvcc): ``{mangled name: {opcode: n}}``."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", str(library_path(source))],
+                          capture_output=True, text=True, check=True)
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {op: 0 for op in opcodes}
+        elif name is not None:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
 def load(source: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<source>``, once per
     process."""

@@ -193,7 +193,9 @@ def test_solve_suite_perturbation_within_tolerance(caches):
     assert (ea == eb).mean() >= 0.99
     assert np.array_equal(ra.best_known, rb.best_known)   # brute force
     assert np.abs(ra.success_rate() - rb.success_rate()).max() <= 0.01
-    assert rb.meta["engine_plan"] == {"path": "scan", "block_r": 64,
+    # block_r: None, the launch plan's pick where a kernel runs (the scan
+    # path ignores it)
+    assert rb.meta["engine_plan"] == {"path": "scan", "block_r": None,
                                       "j_dtype": "float32", "reason": "auto"}
 
 

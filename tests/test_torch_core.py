@@ -37,6 +37,9 @@ from repro_torch.core import lfsr as t_lfsr
 from repro_torch.core import perturbation as t_pert
 from repro_torch.core.binarize import sign_pm1
 from repro_torch.core.engine import AnnealEngine
+from repro_torch.kernels import ising_anneal as ka
+from repro_torch.kernels.ising_anneal import (KERNEL_DESIGN,
+                                              anneal_block_r_candidates)
 from repro_torch.core.machine import IsingMachine
 
 ULP1 = float(np.finfo(np.float32).eps)      # one ULP of 1.0
@@ -329,24 +332,58 @@ class _CudaPlanner(AnnealEngine):
     on_cuda = property(lambda self: True)
 
 
+@pytest.fixture
+def h100_sms(monkeypatch):
+    """The card's SM count, as the autotuner asks for it, an H100's."""
+    monkeypatch.setattr(ka, "card_sm_count", lambda device="cuda": 132)
+    return 132
+
+
 def test_engine_cached_scan_never_moves_auto_plan_off_the_kernel(tmp_path):
     eng = _CudaPlanner(cache_path=str(tmp_path / "tune.json"),
                        torch_device=CPU)
     key = eng._key(2, 64, 16, "float32")
     eng._cache[key] = {"path": "scan", "block_r": 64}
     plan = eng.plan(2, 64, 16)
-    assert (plan.path, plan.block_r, plan.reason) == ("fused", 64, "auto")
+    # block_r: None, the launch plan's own pick, not the stale entry's
+    assert (plan.path, plan.block_r, plan.reason) == ("fused", None, "auto")
     eng._cache[key] = {"path": "fused", "block_r": 32}
     plan = eng.plan(2, 64, 16)
     assert (plan.path, plan.block_r, plan.reason) == ("fused", 32, "cache")
 
 
-def test_engine_autotune_on_cuda_tunes_only_the_kernel(tmp_path):
+def test_engine_autotune_on_cuda_tunes_only_the_kernel(tmp_path, h100_sms):
     eng = _CudaPlanner(cache_path=str(tmp_path / "tune.json"),
                        torch_device=CPU)
     plan = eng.autotune(1, 8, 8, probe_sweeps=0.05)
     assert (plan.path, plan.reason) == ("fused", "autotuned")
+    # the candidates are runs per block that the launch plan accepts
+    assert plan.block_r in anneal_block_r_candidates(1, 8, 8, plan.j_dtype,
+                                                     h100_sms)
     assert eng.plan(1, 8, 8).reason == "cache"
+
+
+def test_engine_plan_block_r_from_launch_plan_and_design_tagged_key(
+        tmp_path):
+    """block_r is None unless the cache holds one: the wrapper then
+    launches ``anneal_launch_plan``'s pick, made once where it launches.
+    The cache key carries the kernel design, so a block_r tuned for
+    another design is never read back."""
+    eng = _CudaPlanner(cache_path=str(tmp_path / "tune.json"),
+                       torch_device=CPU)
+    for j_dtype in ("float32", "bfloat16", "int8"):
+        key = eng._key(8, 1024, 64, j_dtype)
+        assert key.endswith(f"|kernel={KERNEL_DESIGN}")
+    old_key = eng._key(8, 1024, 64, "float32").rsplit("|kernel=", 1)[0]
+    eng._cache[old_key] = {"path": "fused", "block_r": 256}
+    plan = eng.plan(8, 1024, 64)
+    assert (plan.path, plan.block_r, plan.reason) == ("fused", None, "auto")
+    eng._cache[eng._key(8, 1024, 64, plan.j_dtype)] = {"path": "fused",
+                                                        "block_r": 16}
+    assert eng.plan(8, 1024, 64).block_r == 16
+    # past the kernel's limit the plan is the same: the wrapper refuses
+    # the launch on the card, and the CPU's plain version takes any N
+    assert eng.plan(1, 8, ka.MAX_N + 1).block_r is None
 
 
 def test_engine_scan_and_fused_agree_on_unit_schedule(tmp_path):
