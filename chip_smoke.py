@@ -17,7 +17,9 @@ exits nonzero:
                 run blocks than grid.y takes); unrunnable plans refused.
   3. main     — ``repro_torch.api.solve_suite`` on the paper's 64-spin suite
                 (perturbation, gd, and perturbation with bf16 operands),
-                launch counts read around exactly that run, SR/TTS/ETS.
+                launch counts read around exactly that run, SR/TTS/ETS
+                against the oracle's batched tabu-jax tier, and beside it
+                the SR against the host-tabu oracle the port used before.
   4. scan     — the scan path on the card (noise variant, energy trace)
                 and the engine's autotuner (block_r only; a cached 'scan'
                 entry must not move the plan off the kernel).
@@ -49,7 +51,23 @@ exits nonzero:
                 7000 spins; the plan's pick against plans of other cluster
                 sizes at the Gset, (2, 50, 300) and 7000-spin shapes; one
                 end-to-end sb-jax solve at the Gset shape.
-Then the card's name and power limit, the kernels line, and a last line
+ 10. search   — the classical search tier on the 64-spin suite: sa-jax,
+                pt-jax and tabu-jax at 1024 restarts (one batch per bucket,
+                per-restart energies recomputed in float64 from their
+                spins, SR, the bucket's wall, kernels per flip step),
+                sa-numpy and tabu at 16; the same draws on the card and on
+                the CPU (tabu-jax bitwise, sa-jax / pt-jax to the tie rule);
+                the oracle's tabu-jax tier at or below host tabu on every
+                problem; the oracle refresh of the fig5 grid, one tabu-jax
+                batch per pad bucket, timed.
+ 11. zoo      — every workload of the zoo at the reference's sizes through
+                every registered solver (the affine identity and a feasible
+                decode each; engine and chip-lns launch the anneal kernel,
+                sb-jax the SB kernel); every anneal variant against its
+                plain version on the zoo's buckets, whose levels pass the
+                DAC's 15 (TSP 60, a star encoding 118).
+Then the total seconds, the card's name and power limit, the kernels
+line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result. ``--phases compare,timing`` (say) runs the build and those phases
 only, and ends with the card's name and a ``{"phases_run": [...]}`` line.
@@ -67,6 +85,7 @@ import sys
 import tempfile
 import time
 
+START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
@@ -429,6 +448,7 @@ def phase_main(oracle_path):
     sr_p = summary["perturbation"]["mean_success_rate"]
     sr_g = summary["gd"]["mean_success_rate"]
     check(sr_p > sr_g, f"mean SR perturbation {sr_p} <= gd {sr_g}")
+    emit({"phase": "main", **sr_under_host_tabu_oracle(suite, reports)})
 
     # the same gd solve through the scan path (torch ops on the card): on
     # the unit schedule every sum is exact, so the energies are identical
@@ -442,6 +462,33 @@ def phase_main(oracle_path):
           "equal": bool(same)})
     check(same, "gd energies differ between fused kernel and scan path")
     return launches
+
+
+def sr_under_host_tabu_oracle(suite, reports):
+    """Mean SR of each report against the oracle the port used before its
+    batched tier: host ``tabu_search`` with ``TABU_JAX_ORACLE_RESTARTS``
+    restarts, seed 0, per problem, upgraded by each solve in turn as
+    ``reconcile_best_known`` upgrades the cache; beside the SR the reports
+    carry (the batched tabu-jax tier, as the reference's)."""
+    import numpy as np
+
+    from repro_torch.api.oracle import TABU_JAX_ORACLE_RESTARTS
+    from repro_torch.metrics.success import success_rate
+    from repro_torch.solvers.tabu import tabu_search
+    t0 = time.perf_counter()
+    best = np.array([tabu_search(p.J_levels,
+                                 n_restarts=TABU_JAX_ORACLE_RESTARTS,
+                                 seed=0)[0] for p in suite])
+    host_s = time.perf_counter() - t0
+    out = {"oracle_host_tabu": best.tolist(), "oracle_host_tabu_s": host_s}
+    for name, rep in reports.items():
+        best = np.minimum(best, rep.best_energy)
+        sr = success_rate(np.stack(rep.energies), best)
+        out[name] = {"mean_success_rate_host_tabu_oracle": float(sr.mean()),
+                     "mean_success_rate_tabu_jax_oracle":
+                         rep.metrics()["mean_success_rate"],
+                     "best_known_tabu_jax": rep.best_known.tolist()}
+    return out
 
 
 def phase_scan(oracle_path):
@@ -1071,8 +1118,400 @@ def phase_sb_timing():
     return rows
 
 
+#: the classical search tier: the batched solvers run on the card at RUNS
+#: restarts, the host solvers at HOST_RUNS; the card-vs-CPU comparison of
+#: the batched ones runs CROSS_RUNS restarts (the CPU runs it too)
+SEARCH_DEVICE = ("sa-jax", "pt-jax", "tabu-jax")
+SEARCH_HOST = ("sa-numpy", "tabu")
+HOST_RUNS, CROSS_RUNS = 16, 64
+#: the registry's defaults, which the direct runs calls repeat
+SA_SWEEPS, PT_SWEEPS, PT_RUNGS = 200, 120, 4
+
+
+def search_runs(name, J, n_true, runs, seed, dev, draws=None, size=None):
+    """One bucket of a batched search solver as its registry class runs it
+    (numpy results). ``size``: sweeps (SA, PT) or flips (tabu) in place of
+    the defaults."""
+    from repro_torch.solvers import (parallel_tempering_jax_runs,
+                                     simulated_annealing_jax_runs,
+                                     tabu_search_jax_runs)
+    if name == "sa-jax":
+        return simulated_annealing_jax_runs(
+            J, n_runs=runs, n_sweeps=size or SA_SWEEPS, seed=seed,
+            draws=draws, torch_device=dev)
+    if name == "pt-jax":
+        return parallel_tempering_jax_runs(
+            J, n_runs=runs, n_sweeps=size or PT_SWEEPS, n_rungs=PT_RUNGS,
+            seed=seed, draws=draws, torch_device=dev)
+    iters = [size or 40 * n for n in n_true]
+    return tabu_search_jax_runs(J, n_true=n_true, n_iters=iters,
+                                n_restarts=runs, seed=seed, draws=draws,
+                                torch_device=dev)
+
+
+def search_draws(name, P, runs, n, n_true, dev):
+    from repro_torch.solvers.pt_jax import pt_draws
+    from repro_torch.solvers.sa_jax import sa_draws
+    from repro_torch.solvers.tabu_jax import tabu_draws
+    if name == "sa-jax":
+        return sa_draws(P, runs, n, SA_SWEEPS, SEED, dev)
+    if name == "pt-jax":
+        return pt_draws(P, runs, PT_RUNGS, n, PT_SWEEPS, SEED, dev)
+    return tabu_draws(P, runs, n, 40 * max(n_true), n_true, SEED, dev)
+
+
+@contextlib.contextmanager
+def exp_spy(calls):
+    """Within the block, every ``torch.exp`` call appends (argument, value)
+    as numpy arrays to ``calls``."""
+    import torch
+    orig = torch.exp
+
+    def spy(x):
+        out = orig(x)
+        calls.append((x.detach().cpu().numpy(), out.detach().cpu().numpy()))
+        return out
+    torch.exp = spy
+    try:
+        yield
+    finally:
+        torch.exp = orig
+
+
+def first_divergences(name, draws, calls_a, calls_b, n, R):
+    """{(p, r): ULP distance of the two runs' accept probabilities at the
+    restart's first decision (Metropolis flip or PT swap) where the runs
+    part}, from their ``exp`` calls in call order and the shared draws."""
+    import numpy as np
+
+    def ulps(a, b):
+        return np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64))
+    u = draws[2].numpy()
+    P, K = u.shape[0], PT_RUNGS if name == "pt-jax" else 1
+    rung = np.arange(K)
+    calls = iter(zip(calls_a, calls_b))
+    out = {}
+    for t in range(u.shape[2]):
+        steps = []
+        for i in range(n):
+            (_, pa), (_, pb) = next(calls)
+            uc = u[:, :, t, ..., i].reshape(pa.shape)
+            steps.append((uc < pa, uc < pb, pa, pb))
+        if name == "pt-jax":                 # swap_every 1: every sweep
+            (_, pa), (_, pb) = next(calls)
+            left = (rung % 2 == t % 2) & (rung + 1 < K)
+            uc = draws[3].numpy()[:, :, t]
+            steps.append((left & (uc < pa), left & (uc < pb), pa, pb))
+        for da, db, pa, pb in steps:
+            diff = (da != db).reshape(P, R, -1)
+            dist = np.where(diff, ulps(pa, pb).reshape(P, R, -1), -1)
+            for p, r in zip(*np.nonzero(diff.any(-1))):
+                out.setdefault((int(p), int(r)), int(dist[p, r].max()))
+    check(next(calls, None) is None, f"{name}: exp calls left over")
+    return out
+
+
+def cross_device(name, J, n_true):
+    """The same draws (made on the card) on the card and on the CPU: tabu-jax
+    bitwise; sa-jax / pt-jax restarts equal, a differing one only past a
+    decision whose two probabilities are within 2 ULP, at most 1% of
+    restarts."""
+    import numpy as np
+    import torch
+    P, n = J.shape[0], J.shape[-1]
+    draws = search_draws(name, P, CROSS_RUNS, n, n_true, "cuda")
+    cpu_draws = tuple(d.cpu() for d in draws)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)         # small CPU ops: one thread is fastest
+    try:
+        card = search_runs(name, J, n_true, CROSS_RUNS, SEED, "cuda", draws)
+        cpu = search_runs(name, J, n_true, CROSS_RUNS, SEED, "cpu",
+                          cpu_draws)
+        differ = ((card[0] != cpu[0]) | (card[1] != cpu[1]).any(-1))
+        row = {"solver": name, "shape": [P, CROSS_RUNS, n],
+               "restarts_differing": int(differ.sum()),
+               "all_outputs_equal": all(np.array_equal(a, b)
+                                        for a, b in zip(card, cpu))}
+        if name == "tabu-jax":
+            check(row["all_outputs_equal"], f"tabu-jax: card and CPU differ "
+                  f"with the same draws ({row})")
+        elif differ.any():
+            calls_card, calls_cpu = [], []
+            with exp_spy(calls_card):
+                search_runs(name, J, n_true, CROSS_RUNS, SEED, "cuda", draws)
+            with exp_spy(calls_cpu):
+                search_runs(name, J, n_true, CROSS_RUNS, SEED, "cpu",
+                            cpu_draws)
+            first = first_divergences(name, cpu_draws, calls_card,
+                                      calls_cpu, n, CROSS_RUNS)
+            row["first_divergence_ulps"] = sorted(first.values())
+            unexplained = {(int(p), int(r))
+                           for p, r in zip(*np.nonzero(differ))} - set(first)
+            check(not unexplained, f"{name}: restarts {sorted(unexplained)} "
+                  "differ with no divergent decision")
+            check(max(first.values()) <= 2, f"{name}: a first divergence "
+                  f"is no tie: {first}")
+            check(differ.sum() <= 0.01 * differ.size,
+                  f"{name}: {int(differ.sum())} of {differ.size} restarts "
+                  "differ (limit 1%)")
+    finally:
+        torch.set_num_threads(threads)
+    if name != "tabu-jax":
+        from repro_torch.solvers.pt_jax import beta_ladder
+        from repro_torch.solvers.sa_jax import sa_betas
+        pairs = ([sa_betas(SA_SWEEPS, torch_device=d) for d in ("cuda", "cpu")]
+                 if name == "sa-jax" else
+                 [beta_ladder(PT_RUNGS, torch_device=d)
+                  for d in ("cuda", "cpu")])
+        a, b = (x.cpu().numpy().view(np.int32).astype(np.int64)
+                for x in pairs)
+        row["beta_table_max_ulps"] = int(np.abs(a - b).max())
+        check(row["beta_table_max_ulps"] <= 2, f"{name}: beta tables of "
+              "card and CPU more than 2 ULP apart")
+    return row
+
+
+def launches_per_step(name, J, n_true):
+    """Device kernels (torch.profiler, CUDA activity) one flip step of the
+    solver launches at the suite's (P, RUNS) batch: the difference between
+    runs of two lengths (sweeps for SA / PT, over n flips a sweep; tabu
+    iterations), so set-up launches cancel. ``ops`` counts the torch ops
+    dispatched the same way (a view launches nothing, a reduction may
+    launch two)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            OpCount.n += 1
+            return func(*args, **(kwargs or {}))
+
+    n = J.shape[-1]
+    lengths = (4, 8) if name != "tabu-jax" else (32, 64)
+    per = n if name != "tabu-jax" else 1
+    kernels, ops = [], []
+    for size in lengths:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            search_runs(name, J, n_true, RUNS, SEED, "cuda", size=size)
+            torch.cuda.synchronize()
+        kernels.append(sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA))
+        OpCount.n = 0
+        with OpCount():
+            search_runs(name, J, n_true, RUNS, SEED, "cuda", size=size)
+        ops.append(OpCount.n)
+    steps = (lengths[1] - lengths[0]) * per
+    return {"kernels_per_flip_step": (kernels[1] - kernels[0]) / steps
+            if kernels[0] else None,
+            "ops_per_flip_step": (ops[1] - ops[0]) / steps,
+            "profiled_lengths": list(lengths),
+            "kernels_profiled": kernels, "ops_counted": ops}
+
+
+def phase_search(oracle_path):
+    """The classical search tier on the card, on the paper's 64-spin suite:
+    sa-jax, pt-jax and tabu-jax at RUNS restarts (one batch per bucket,
+    per-restart energies recomputed in float64 from their spins, SR, wall
+    of the bucket, launches per flip step), sa-numpy and tabu at HOST_RUNS;
+    the same draws on the card and on the CPU; the oracle's tabu-jax tier
+    at or below host tabu's best on every problem; and the oracle refresh
+    of ``ProblemSuite.grid()`` into an empty cache, one ``_tabu_jax_batch``
+    per pad bucket, timed."""
+    import numpy as np
+
+    from repro_torch.api import ProblemSuite, best_known_energies, solve_suite
+    from repro_torch.api import oracle as oracle_mod
+    from repro_torch.api.batching import plan_buckets
+    from repro_torch.solvers.tabu import tabu_search
+    suite = ProblemSuite.random(**SUITE)
+    (bucket,) = suite.buckets()
+    J, n_true = bucket.J, list(suite.sizes)
+    J64 = J.astype(np.float64)
+    out = {}
+    for name in SEARCH_DEVICE + SEARCH_HOST:
+        on_card = name in SEARCH_DEVICE
+        runs = RUNS if on_card else HOST_RUNS
+        rep = solve_suite(suite, solver=name, runs=runs, seed=SEED,
+                          torch_device="cuda", oracle_path=oracle_path,
+                          **({"warmup": True} if on_card else {}))
+        check(rep.dispatches == (1 if on_card else 0),
+              f"{name}: {rep.dispatches} dispatches for one bucket")
+        check(all(len(e) == runs and np.isfinite(e).all()
+                  for e in rep.energies), f"{name}: energies malformed")
+        for i, p in enumerate(suite):
+            s = rep.best_sigma[i].astype(np.float64)
+            check(-0.5 * s @ J64[i] @ s == rep.best_energy[i],
+                  f"{name} problem {i}: best energy is not its spins'")
+        row = {"solver": name, "runs": runs, "wall_s": rep.wall_s,
+               "first_call_extra_s": rep.compile_s,
+               "anneals_per_s": rep.anneals_per_s}
+        if on_card:
+            e, s = search_runs(name, J, n_true, RUNS, SEED, "cuda")[:2]
+            check(np.array_equal(e, np.stack(rep.energies)),
+                  f"{name}: the direct call differs from the solve")
+            s64 = s.astype(np.float64)
+            e64 = -0.5 * np.einsum("pri,pij,prj->pr", s64, J64, s64)
+            check(np.array_equal(e64, e), f"{name}: a per-restart energy "
+                  "is not that of its spins (float64)")
+            row.update(launches_per_step(name, J, n_true))
+            row["same_draws_card_vs_cpu"] = cross_device(name, J, n_true)
+        m = rep.metrics()
+        row.update(success_rate=[float(x) for x in m["success_rate"]],
+                   mean_success_rate=m["mean_success_rate"],
+                   best_energy=rep.best_energy.tolist(),
+                   best_known=rep.best_known.tolist())
+        emit({"phase": "search", **row})
+        out[name] = row
+
+    # the oracle's batched tier against the host tabu it replaced
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        bk = best_known_energies(suite, path=os.path.join(tmp, "o.json"),
+                                 torch_device="cuda")
+        tier_s = time.perf_counter() - t0
+        host = np.array([tabu_search(p.J_levels,
+                                     n_restarts=oracle_mod.TABU_JAX_ORACLE_RESTARTS,
+                                     seed=0)[0] for p in suite])
+        emit({"phase": "search", "oracle_tabu_jax": bk.tolist(),
+              "oracle_host_tabu": host.tolist(), "tabu_jax_tier_s": tier_s,
+              "at_or_below_host": bool(np.all(bk <= host))})
+        check(np.all(bk <= host), f"tabu-jax oracle above host tabu: "
+              f"{bk} vs {host}")
+
+        grid = ProblemSuite.grid()
+        batches = []
+        orig = oracle_mod._tabu_jax_batch
+
+        def timed_batch(J, n_true, seed, torch_device):
+            t = time.perf_counter()
+            e = orig(J, n_true, seed, torch_device)
+            batches.append({"shape": list(np.shape(J)),
+                            "s": time.perf_counter() - t})
+            return e
+        oracle_mod._tabu_jax_batch = timed_batch
+        try:
+            t0 = time.perf_counter()
+            bk = best_known_energies(grid, path=os.path.join(tmp, "g.json"),
+                                     torch_device="cuda")
+            refresh_s = time.perf_counter() - t0
+        finally:
+            oracle_mod._tabu_jax_batch = orig
+        large = [n for n in grid.sizes if n > oracle_mod.BRUTE_FORCE_MAX_N]
+        expect = plan_buckets(large).num_buckets
+        emit({"phase": "search", "grid_refresh": {
+            "problems": len(grid), "tabu_jax_problems": len(large),
+            "brute_force_problems": len(grid) - len(large),
+            "batches": batches, "expected_batches": expect,
+            "refresh_s": refresh_s, "finite": bool(np.isfinite(bk).all())}})
+        check(len(batches) == expect >= 1 and np.isfinite(bk).all(),
+              f"grid refresh: {len(batches)} batches, {expect} buckets")
+    return out
+
+
+#: the reference's native sizes of the zoo round trip (tests/test_workloads.py)
+ZOO_SIZES = {"mis": 9, "vertex-cover": 9, "coloring": 5, "3sat": 5, "tsp": 4}
+ZOO_RUNS, ZOO_BLOCK = 48, 32
+
+
+def zoo_star():
+    """A MIS encoding with a hub of 60 leaves: levels up to 118, the
+    largest that one 64-spin die's bucket carries."""
+    from repro_torch.workloads import get_workload
+    edges = [[0, i] for i in range(1, 61)] + [[i, i + 1]
+                                             for i in range(1, 60, 2)]
+    return get_workload("mis").encode({"n": 61, "edges": edges})
+
+
+def phase_zoo():
+    """Every workload at the reference's sizes through every registered
+    solver on the card (engine and chip-lns on the anneal kernel, sb-jax on
+    the SB kernel at dt 0.25, as the reference tunes it); gates: the affine
+    identity and a feasible decode for every solver, and the kernels
+    launched. Then the anneal variants the engine picks (f32 under
+    perturbation; int8 for gd, bf16 on request) against their plain
+    versions on the zoo's buckets, whose levels pass the DAC's 15 (TSP,
+    and a star of level 118)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ProblemSuite, get_solver, list_solvers
+    from repro_torch.core.lfsr import lfsr_voltage_inits
+    from repro_torch.kernels import ising_anneal as ka
+    from repro_torch.kernels import sb_kernel as sbk
+    from repro_torch.workloads import get_workload, model_energy, spins_to_bits
+    problems = {name: get_workload(name).random_problem(size, seed=2)
+                for name, size in ZOO_SIZES.items()}
+    tuned = {"sb-jax": {"dt": 0.25}}
+    ka.reset_launches()
+    sbk.reset_launches()
+    for name, p in problems.items():
+        wl = get_workload(name)
+        solved = {}
+        for sname, caps in list_solvers().items():
+            if caps.max_n is not None and p.n > caps.max_n:
+                continue
+            rep = get_solver(sname, torch_device="cuda",
+                             **tuned.get(sname, {})).solve(
+                ProblemSuite([p]), runs=ZOO_RUNS, seed=5, block=ZOO_BLOCK)
+            sigma = rep.best_sigma[0]
+            mv = wl.model_value(p, spins_to_bits(sigma))
+            res = wl.roundtrip(p, sigma)
+            solved[sname] = {"feasible": bool(res.feasible),
+                             "objective": float(res.objective),
+                             "identity": bool(mv == model_energy(p, sigma)),
+                             "wall_s": rep.wall_s}
+            check(solved[sname]["identity"], f"zoo {name} {sname}: "
+                  "4 f(bits) != energy + offset")
+            check(res.feasible, f"zoo {name} {sname}: infeasible decode "
+                  f"{res}")
+        emit({"phase": "zoo", "workload": name, "n": p.n,
+              "max_level": int(np.abs(p.levels).max()),
+              "fits_dac": bool(p.meta["fits_dac"]), "solvers": solved})
+        check(set(solved) == set(list_solvers()), f"zoo {name}: solvers "
+              f"{sorted(solved)} took part")
+    launches = {**ka.launches, **sbk.launches}
+    emit({"phase": "zoo", "launches": launches})
+    check(launches["ising_anneal_f32"] >= 2 * len(problems) and
+          launches["sb_bsb"] >= len(problems),
+          f"zoo: the engine / chip-lns / sb-jax solves launched {launches}")
+
+    cases = [(name, p, ZOO_BLOCK) for name, p in problems.items()]
+    cases.append(("star", zoo_star(), 64))
+    for label, p, block in cases:
+        (bucket,) = ProblemSuite([p]).buckets(block)
+        J = torch.as_tensor(bucket.J, device="cuda")
+        v0 = torch.as_tensor(lfsr_voltage_inits(bucket.n_pad, ZOO_RUNS,
+                                                seed=3))[None].to("cuda")
+        unit_dev, unit_pert = variants()["int8"]
+        keys = ("j_dtype", "shape", "bitwise", "bitwise_repeat",
+                "bitwise_plans", "max_abs_err", "runs_differing", "runs")
+        for j_dtype, (dev, pert) in variants().items():
+            st = compare_one(J, v0, unit_dev, unit_pert, j_dtype)
+            emit({"phase": "zoo", "case": label, "schedule": "unit",
+                  "max_level": int(np.abs(p.levels).max()),
+                  **{k: st[k] for k in keys}})
+            check(st["bitwise"] and st["bitwise_repeat"],
+                  f"zoo {label} {j_dtype} unit: kernel and plain differ")
+            if j_dtype == "int8":
+                continue
+            st = compare_one(J, v0, dev, pert, j_dtype)
+            emit({"phase": "zoo", "case": label, "schedule": "perturbation",
+                  **{k: st[k] for k in keys}})
+            what = f"zoo {label} {j_dtype} perturbation"
+            check(st["bitwise_repeat"], f"{what}: not repeatable")
+            if j_dtype == "bfloat16":
+                check(st["bitwise"], f"{what}: kernel and plain differ")
+            check(st["runs_differing"] <= 0.05 * st["runs"] and
+                  st["max_abs_err_agreeing_runs"] <= 1e-5 and
+                  st["max_sr_gap"] <= 0.03, f"{what}: {st}")
+
+
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
-          "gset", "sb_timing")
+          "gset", "sb_timing", "search", "zoo")
 
 
 def main(argv=None) -> int:
@@ -1112,8 +1551,11 @@ def main(argv=None) -> int:
             "sb_main": lambda: phase_sb_main(oracle_path),
             "gset": phase_gset,
             "sb_timing": phase_sb_timing,
+            "search": lambda: phase_search(oracle_path),
+            "zoo": phase_zoo,
         }
         out = {name: run[name]() for name in PHASES if name in phases}
+    emit({"phase": "end", "total_s": time.perf_counter() - START})
     if set(out) != set(PHASES):
         print(nvidia_smi(), flush=True)
         emit({"phases_run": list(out)})

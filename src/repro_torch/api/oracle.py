@@ -6,9 +6,14 @@ Level-space best-known energies persist in the port's own sharded cache
 relocates it). The port never writes the JAX package's
 ``experiments/oracle_cache.shards/``.
 
-Tiering: N <= ``BRUTE_FORCE_MAX_N`` is solved exactly by brute force;
-larger problems get the host numpy ``tabu_search`` with
-``TABU_JAX_ORACLE_RESTARTS`` restarts per problem (method ``"tabu"``).
+Tiering, as the reference tiers: N <= ``BRUTE_FORCE_MAX_N`` (the constant
+shared with the brute-force solver) is solved exactly on the host; cache
+misses above it are padded into suite buckets and refreshed by batched
+``tabu-jax`` on the torch device (``solvers.tabu_jax``), one
+``_tabu_jax_batch`` per pad bucket for the whole refresh, with
+``TABU_JAX_ORACLE_RESTARTS`` restarts (method ``"tabu-jax"``). An entry an
+older port cache holds from its host-tabu tier (method ``"tabu"``) stays
+valid: the lower energy wins every merge (``_keep_best``).
 
 Escape hatches: ``use_cache=False`` bypasses reads AND writes;
 ``refresh=True`` recomputes but still persists.
@@ -19,9 +24,12 @@ import os
 import time
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..solvers.brute_force import BRUTE_FORCE_MAX_N
 from ..utils import load_sharded_json_cache, store_sharded_json_cache
+from .batching import plan_buckets
 from .problem import Problem
 from .suite import ProblemSuite
 
@@ -31,8 +39,8 @@ _REPO_ROOT = os.path.abspath(
 DEFAULT_CACHE = os.path.join(_REPO_ROOT, "experiments",
                              "oracle_cache_torch.json")
 
-#: restarts per problem for the tabu tier (the reference's batched tier
-#: uses the same count).
+#: restarts per problem for the batched tabu-jax tier: restarts are batch
+#: rows, so they cost device parallelism, not wall time.
 TABU_JAX_ORACLE_RESTARTS = 16
 
 
@@ -57,20 +65,26 @@ def _store(path: str, cache: dict) -> None:
     store_sharded_json_cache(path, cache, resolve=_keep_best)
 
 
-def _compute(problem: Problem, seed: int) -> dict:
-    """Exact tier for n <= the shared boundary, host tabu above it."""
-    stamp = time.strftime("%Y-%m-%d %H:%M:%S")
-    if problem.n <= BRUTE_FORCE_MAX_N:
-        from ..solvers.brute_force import brute_force_ground_state
-        e, _ = brute_force_ground_state(problem.J_levels)
-        return {"energy": float(e), "method": "brute_force", "n": problem.n,
-                "kind": problem.kind, "computed_at": stamp}
-    from ..solvers.tabu import tabu_search
-    e, _ = tabu_search(problem.J_levels, n_restarts=TABU_JAX_ORACLE_RESTARTS,
-                       seed=seed)
-    return {"energy": float(e), "method": "tabu", "n": problem.n,
-            "kind": problem.kind, "restarts": TABU_JAX_ORACLE_RESTARTS,
-            "computed_at": stamp}
+def _compute(problem: Problem) -> dict:
+    """Exact tier: brute-force one small problem (n <= the shared
+    boundary). Larger problems go to the batched tier (``_tabu_jax_batch``)."""
+    from ..solvers.brute_force import brute_force_ground_state
+    e, _ = brute_force_ground_state(problem.J_levels)
+    return {"energy": float(e), "method": "brute_force", "n": problem.n,
+            "kind": problem.kind,
+            "computed_at": time.strftime("%Y-%m-%d %H:%M:%S")}
+
+
+def _tabu_jax_batch(J, n_true, seed: int,
+                    torch_device: torch.device) -> np.ndarray:
+    """ONE batch of the oracle's tabu-jax tier: (P, n_pad, n_pad) padded
+    couplings -> (P,) best tabu energies. Kept as a seam so tests can count
+    the batches the oracle runs."""
+    from ..solvers.tabu_jax import tabu_search_jax_runs
+    e, _, _ = tabu_search_jax_runs(
+        J, n_true=n_true, n_restarts=TABU_JAX_ORACLE_RESTARTS, seed=seed,
+        torch_device=torch_device)
+    return e.min(axis=1)
 
 
 def _as_problems(problems):
@@ -83,15 +97,24 @@ def _as_problems(problems):
 
 def best_known_energies(problems, use_cache: bool = True,
                         refresh: bool = False, seed: int = 0,
-                        path: str | None = None) -> np.ndarray:
+                        path: str | None = None,
+                        torch_device: str | torch.device = "cuda"
+                        ) -> np.ndarray:
     """(P,) level-space best-known energies for a suite / problem list.
-    Cache hits skip the solver; misses are computed per problem by tier and
-    persisted in one store."""
+
+    Cache hits skip the solver. Misses tier by size: N <=
+    ``BRUTE_FORCE_MAX_N`` is brute-forced (host); everything larger is
+    stacked into padded suite buckets and refreshed by the tabu-jax tier on
+    ``torch_device``, one batch per pad bucket for the whole refresh.
+    Results persist in one store.
+    """
+    dev = resolve_device(torch_device)
     problems = _as_problems(problems)
     path = path or cache_path()
     cache = _load(path) if use_cache else {}
     fresh: dict = {}
     out = np.empty(len(problems), dtype=np.float64)
+    large: list[int] = []
     for i, p in enumerate(problems):
         key = p.content_hash
         entry = None if refresh else cache.get(key)
@@ -99,9 +122,31 @@ def best_known_energies(problems, use_cache: bool = True,
                 entry.get("method") != "brute_force":
             entry = None        # a heuristic entry inside the exact tier
         if entry is None:
-            entry = _compute(p, seed)
+            if p.n > BRUTE_FORCE_MAX_N:
+                large.append(i)                  # batched below
+                continue
+            entry = _compute(p)
             cache[key] = fresh[key] = entry
         out[i] = entry["energy"]
+
+    if large:
+        subs = [problems[i] for i in large]
+        plan = plan_buckets([p.n for p in subs])
+        stamp = time.strftime("%Y-%m-%d %H:%M:%S")
+        for bucket in plan.materialize([p.J_levels for p in subs]):
+            e_best = _tabu_jax_batch(
+                bucket.J, [subs[k].n for k in bucket.indices], seed=seed,
+                torch_device=dev)
+            for k, sub_i in enumerate(bucket.indices):
+                i = large[sub_i]
+                p = problems[i]
+                cache[p.content_hash] = fresh[p.content_hash] = {
+                    "energy": float(e_best[k]), "method": "tabu-jax",
+                    "n": p.n, "kind": p.kind,
+                    "restarts": TABU_JAX_ORACLE_RESTARTS,
+                    "computed_at": stamp}
+                out[i] = e_best[k]
+
     if use_cache and fresh:
         _store(path, fresh)
     return out

@@ -6,7 +6,8 @@
 ``suite`` may be a :class:`ProblemSuite`, a single :class:`Problem`, or a
 raw coupling matrix / batch (wrapped automatically). ``runs`` is the number
 of independent runs per problem; ``budget`` is a solver-relative effort
-multiplier (anneal length for the engine; exact solvers ignore it).
+multiplier (anneal length for the engine, sweeps for SA / PT, flips for
+tabu, integration steps for SB; exact solvers ignore it).
 Batched solvers bucket heterogeneous suites by padded size, so a mixed
 16/32/64-spin sweep costs one device dispatch per bucket —
 ``SolveReport.dispatches`` records the count.
@@ -14,9 +15,11 @@ Batched solvers bucket heterogeneous suites by padded size, so a mixed
 Registered here: ``engine`` (the digital twin on the AnnealEngine, variants
 ``perturbation`` / ``gd`` / ``noise``), ``sb-jax`` (simulated bifurcation on
 its own kernel; the reference's name), ``chip-lns`` (block decomposition of
-N > 64 onto the engine) and ``brute-force`` (exact). Every solver takes
-``torch_device`` (default ``"cuda"``; raises without CUDA unless it is
-``"cpu"``).
+N > 64 onto the engine), the classical search tier (``sa-jax``, ``pt-jax``
+and ``tabu-jax``: batched torch loops, one batch per pad bucket; ``sa-numpy``
+and ``tabu``: host numpy loops, one call per problem) and ``brute-force``
+(exact). Every solver takes ``torch_device`` (default ``"cuda"``; raises
+without CUDA unless it is ``"cpu"``).
 """
 from __future__ import annotations
 
@@ -87,6 +90,33 @@ def get_solver(name: str, **opts) -> Solver:
     return cls(**opts)
 
 
+class SolverWrapper:
+    """Delegating base for solver interposers.
+
+    A wrapper satisfies the :class:`Solver` protocol by forwarding
+    ``name`` / ``caps`` / ``solve`` to the wrapped instance, so anything
+    that consumes a registered solver accepts a wrapped one. Subclass and
+    override ``solve`` to interpose (fault injectors, test shims).
+    """
+
+    def __init__(self, inner: Solver):
+        self.inner = inner
+
+    @property
+    def name(self) -> str:
+        return self.inner.name
+
+    @property
+    def caps(self) -> SolverCaps:
+        return self.inner.caps
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        return self.inner.solve(suite, runs=runs, seed=seed, budget=budget,
+                                block=block)
+
+
 def as_suite(problems) -> ProblemSuite:
     """Normalize Problem / ProblemSuite / raw (N,N) or (P,N,N) couplings."""
     if isinstance(problems, ProblemSuite):
@@ -117,7 +147,8 @@ def solve_suite(problems, solver: str = "engine", runs: int = 64,
             # Heuristic solver: external best-known, upgraded in place if
             # this solve happened to beat a stale cached entry.
             bk = best_known_energies(suite, use_cache=use_cache,
-                                     path=oracle_path)
+                                     path=oracle_path,
+                                     torch_device=torch_device)
             bk = reconcile_best_known(
                 suite, np.minimum(bk, report.best_energy),
                 use_cache=use_cache, path=oracle_path,
@@ -275,6 +306,223 @@ class EngineSolver:
                                    "block_r": plan.block_r,
                                    "j_dtype": plan.j_dtype,
                                    "reason": plan.reason}
+        return rep
+
+
+@register_solver("sa-jax", needs_oracle=True, exact=False, device="torch")
+class SAJaxSolver:
+    """Metropolis SA on the torch device (``solvers.sa_jax``): restarts x
+    problems of a pad bucket in one batch. ``budget`` multiplies the sweep
+    count. Bucket b draws from ``seed + 7919 * b``."""
+
+    def __init__(self, n_sweeps: int = 200, beta0: float = 0.05,
+                 beta1: float = 4.0, warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        self.n_sweeps = n_sweeps
+        self.beta0 = beta0
+        self.beta1 = beta1
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..solvers.sa_jax import simulated_annealing_jax_runs
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        eff = search_effort(self.n_sweeps, runs, budget)
+
+        def run_bucket(bucket, b_idx):
+            return simulated_annealing_jax_runs(
+                bucket.J, n_runs=eff.restarts, n_sweeps=eff.iters,
+                beta0=self.beta0, beta1=self.beta1, seed=seed + 7919 * b_idx,
+                torch_device=self.torch_device)
+
+        return _bucketed_report(suite, self.name, runs, block, run_bucket,
+                                meta={"n_sweeps": eff.iters,
+                                      "effort": dataclasses.asdict(eff),
+                                      "torch_device": str(self.torch_device)},
+                                warmup=self.warmup)
+
+
+@register_solver("sa-numpy", needs_oracle=True, exact=False, device="numpy")
+class SANumpySolver:
+    """Host numpy SA (``solvers.sa``), one vectorized-restart call per
+    problem, seeded ``seed + 31 * i``. ``torch_device`` is resolved like
+    every entry point's, though nothing runs on it."""
+
+    def __init__(self, n_sweeps: int = 200, beta0: float = 0.05,
+                 beta1: float = 4.0,
+                 torch_device: str | torch.device = "cuda"):
+        self.n_sweeps = n_sweeps
+        self.beta0 = beta0
+        self.beta1 = beta1
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..solvers.sa import simulated_annealing
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        eff = search_effort(self.n_sweeps, runs, budget)
+        energies, sigmas = [], []
+        t0 = time.time()
+        for i, p in enumerate(suite):
+            e, s = simulated_annealing(
+                p.J_levels, n_sweeps=eff.iters, n_restarts=eff.restarts,
+                beta0=self.beta0, beta1=self.beta1, seed=seed + 31 * i,
+                return_all=True)
+            energies.append(np.asarray(e, dtype=np.float64))
+            sigmas.append(s[int(np.argmin(e))])
+        return SolveReport(
+            solver=self.name, runs=runs, energies=energies,
+            best_sigma=sigmas, problem_hashes=suite.hashes,
+            sizes=suite.sizes, scales=tuple(p.scale for p in suite),
+            wall_s=time.time() - t0, dispatches=0,
+            meta={"n_sweeps": eff.iters, "host_evals": len(suite)})
+
+
+@register_solver("tabu", needs_oracle=False, exact=False, device="numpy")
+class TabuSolver:
+    """qbsolv-style tabu search on the host (``solvers.tabu``), the paper's
+    best-known oracle. ``runs`` maps to independent restarts; ``budget``
+    multiplies the per-restart iteration count (default 40*N); problem i is
+    seeded ``seed + 31 * i``.
+
+    ``meta["iters_used"]`` records the flips each restart APPLIED: a
+    restart stops early when every move is tabu and none aspirates."""
+
+    def __init__(self, tenure: Optional[int] = None,
+                 torch_device: str | torch.device = "cuda"):
+        self.tenure = tenure
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..solvers.tabu import tabu_search
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        energies, sigmas, iters_used, n_iters = [], [], [], []
+        t0 = time.time()
+        for i, p in enumerate(suite):
+            eff = search_effort(40 * p.n, runs, budget)
+            e, s, used = tabu_search(
+                p.J_levels, n_iters=eff.iters, n_restarts=eff.restarts,
+                tenure=self.tenure, seed=seed + 31 * i, return_all=True,
+                return_iters=True)
+            energies.append(np.asarray(e, dtype=np.float64))
+            sigmas.append(s[int(np.argmin(e))])
+            iters_used.append(used.tolist())
+            n_iters.append(eff.iters)
+        return SolveReport(
+            solver=self.name, runs=runs, energies=energies,
+            best_sigma=sigmas, problem_hashes=suite.hashes,
+            sizes=suite.sizes, scales=tuple(p.scale for p in suite),
+            wall_s=time.time() - t0, dispatches=0,
+            meta={"n_iters": n_iters, "iters_used": iters_used,
+                  "host_evals": len(suite)})
+
+
+@register_solver("tabu-jax", needs_oracle=False, exact=False,
+                 device="torch")
+class TabuJaxSolver:
+    """The tabu oracle at machine batch scale (``solvers.tabu_jax``):
+    restarts x problems of a pad bucket in one batch, lockstep iterations.
+    Same algorithm and per-problem budgets as ``tabu`` (``n_iters = 40 * N
+    * budget``, tenure ``max(4, N // 4)``); padded spins are masked out of
+    the candidate moves. Bucket b draws from ``seed + 7919 * b``.
+
+    ``meta["iters_used"]`` is the per-restart count of applied flips."""
+
+    def __init__(self, tenure: Optional[int] = None, warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        self.tenure = tenure
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..solvers.tabu_jax import tabu_search_jax_runs
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        efforts = [search_effort(40 * p.n, runs, budget) for p in suite]
+        restarts = efforts[0].restarts if efforts else max(1, runs)
+        used_by_problem = {}
+
+        def run_bucket(bucket, b_idx):
+            e, s, used = tabu_search_jax_runs(
+                bucket.J,
+                n_true=[suite[i].n for i in bucket.indices],
+                n_iters=[efforts[i].iters for i in bucket.indices],
+                n_restarts=restarts, tenure=self.tenure,
+                seed=seed + 7919 * b_idx, torch_device=self.torch_device)
+            for k, i in enumerate(bucket.indices):
+                used_by_problem[i] = used[k].tolist()
+            return e, s
+
+        rep = _bucketed_report(
+            suite, self.name, runs, block, run_bucket,
+            meta={"n_iters": [e.iters for e in efforts],
+                  "torch_device": str(self.torch_device)},
+            warmup=self.warmup)
+        rep.meta["iters_used"] = [used_by_problem[i]
+                                  for i in range(len(suite))]
+        return rep
+
+
+@register_solver("pt-jax", needs_oracle=True, exact=False, device="torch")
+class PTJaxSolver:
+    """Replica-exchange parallel tempering (``solvers.pt_jax``) on the
+    shared Metropolis sweep: K fixed rungs per restart, checkerboard
+    neighbour swaps, one batch per pad bucket. ``runs`` is independent PT
+    restarts (each reports its across-rung best); ``budget`` multiplies the
+    sweep count. Bucket b draws from ``seed + 7919 * b``.
+
+    ``meta["swap_acceptances"]`` (mean per restart) is the mixing
+    diagnostic: 0 means the ladder is too steep to exchange."""
+
+    def __init__(self, n_sweeps: int = 120, n_rungs: int = 4,
+                 beta0: float = 0.05, beta1: float = 4.0,
+                 swap_every: int = 1, warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        self.n_sweeps = n_sweeps
+        self.n_rungs = n_rungs
+        self.beta0 = beta0
+        self.beta1 = beta1
+        self.swap_every = swap_every
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..solvers.pt_jax import parallel_tempering_jax_runs
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        eff = search_effort(self.n_sweeps, runs, budget,
+                            rungs=self.n_rungs)
+        swaps_by_problem = {}
+
+        def run_bucket(bucket, b_idx):
+            e, s, swaps = parallel_tempering_jax_runs(
+                bucket.J, n_runs=eff.restarts, n_sweeps=eff.iters,
+                n_rungs=eff.rungs, beta0=self.beta0, beta1=self.beta1,
+                swap_every=self.swap_every, seed=seed + 7919 * b_idx,
+                torch_device=self.torch_device)
+            for k, i in enumerate(bucket.indices):
+                swaps_by_problem[i] = float(np.mean(swaps[k]))
+            return e, s
+
+        rep = _bucketed_report(
+            suite, self.name, runs, block, run_bucket,
+            meta={"effort": dataclasses.asdict(eff),
+                  "torch_device": str(self.torch_device)},
+            warmup=self.warmup)
+        rep.meta["swap_acceptances"] = [swaps_by_problem[i]
+                                        for i in range(len(suite))]
         return rep
 
 

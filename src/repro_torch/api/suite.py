@@ -63,6 +63,19 @@ class ProblemSuite:
                           "index": i}))
         return cls(out)
 
+    @classmethod
+    def workload(cls, name: str, size: int, num_problems: int = 1,
+                 seed: int = 0, **instance_kw) -> "ProblemSuite":
+        """``num_problems`` random instances of a registered workload
+        (``repro_torch.workloads``: coloring / mis / vertex-cover / 3sat /
+        tsp), each encoded onto the Ising fabric. ``size`` is the workload's
+        native size (nodes / variables / cities); the encoded spin count
+        lands in each problem's ``.n``."""
+        from ..workloads import get_workload
+        wl = get_workload(name)
+        return cls([wl.random_problem(size, seed=seed + i, **instance_kw)
+                    for i in range(num_problems)])
+
     # -- collection protocol ----------------------------------------------
     def __len__(self) -> int:
         return len(self.problems)

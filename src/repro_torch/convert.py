@@ -5,7 +5,9 @@ has both packages passes ``dataclasses.asdict`` of a reference
 ``DeviceModel`` / ``PerturbationConfig`` and ``np.asarray`` views of a
 reference ``Problem``'s arrays. A carried problem has the same
 ``content_hash``, so it keys the same oracle-cache entry. The reference's
-``jax.random`` draws (SB initial states) cross as numpy arrays too.
+``jax.random`` draws (SB initial states; the SA, PT and tabu searches'
+initial spins, spin orders, uniforms and kick indices) cross as numpy
+arrays too.
 """
 from __future__ import annotations
 
@@ -81,3 +83,51 @@ def sb_inits_from_arrays(x0, y0, torch_device: str | torch.device = "cuda"):
         raise ValueError(f"need x0 and y0 of one (P, R, N) shape, got "
                          f"{tuple(x0.shape)} and {tuple(y0.shape)}")
     return x0, y0
+
+
+def _draw_tensors(arrays, dtypes, dev):
+    return tuple(torch.as_tensor(np.array(a, dtype=dt), device=dev)
+                 for a, dt in zip(arrays, dtypes, strict=True))
+
+
+def _check_leading(names, tensors, lead: int) -> None:
+    """The draws share their leading (problem, restart) dimensions."""
+    shapes = [tuple(t.shape[:lead]) for t in tensors]
+    if len(set(shapes)) != 1:
+        raise ValueError(f"draws {names} disagree on their leading "
+                         f"dimensions: {shapes}")
+
+
+def sa_draws_from_arrays(s0, order, u,
+                         torch_device: str | torch.device = "cuda"):
+    """The reference's SA draws (numpy: initial spins s0 (P, R, n) ±1, spin
+    orders (P, R, T, n), uniforms (P, R, T, n)) as the port's
+    ``sa_draws`` tensors, for ``simulated_annealing_jax_runs(draws=)``."""
+    dev = resolve_device(torch_device)
+    out = _draw_tensors((s0, order, u), (np.float32, np.int32, np.float32),
+                        dev)
+    _check_leading(("s0", "order", "u"), out, 2)
+    return out
+
+
+def pt_draws_from_arrays(s0, order, u, swap_u,
+                         torch_device: str | torch.device = "cuda"):
+    """The reference's PT draws (numpy: s0 (P, R, K, n), orders and sweep
+    uniforms (P, R, T, K, n), swap uniforms (P, R, T, K)) as the port's
+    ``pt_draws`` tensors, for ``parallel_tempering_jax_runs(draws=)``."""
+    dev = resolve_device(torch_device)
+    out = _draw_tensors((s0, order, u, swap_u),
+                        (np.float32, np.int32, np.float32, np.float32), dev)
+    _check_leading(("s0", "order", "u", "swap_u"), out, 2)
+    return out
+
+
+def tabu_draws_from_arrays(s0, kick,
+                           torch_device: str | torch.device = "cuda"):
+    """The reference's tabu draws (numpy: initial spins s0 (P, R, n) ±1 and
+    the kick index of every iteration, (P, R, max_iters)) as the port's
+    ``tabu_draws`` tensors, for ``tabu_search_jax_runs(draws=)``."""
+    dev = resolve_device(torch_device)
+    out = _draw_tensors((s0, kick), (np.float32, np.int64), dev)
+    _check_leading(("s0", "kick"), out, 2)
+    return out

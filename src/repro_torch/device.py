@@ -9,6 +9,7 @@ a run that meant to measure the card can never quietly measure the host.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_TORCH_DEVICE = "cuda"
@@ -34,3 +35,13 @@ def device_key(dev: torch.device) -> str:
     if dev.type == "cuda":
         return f"cuda:{torch.cuda.get_device_name(dev)}"
     return "cpu"
+
+
+def problem_generator(seed: int, p: int, dev: torch.device) -> torch.Generator:
+    """The ``torch.Generator`` on ``dev`` from which problem ``p`` of a batch
+    seeded ``seed`` draws: seeded from (seed, p), so a problem's draws do
+    not depend on the other problems of its batch."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(np.random.SeedSequence(
+        [int(seed) % 2**64, int(p)]).generate_state(1, np.uint64)[0]))
+    return gen

@@ -13,14 +13,26 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --solver chip-lns \
         --workload maxcut --spins 128 --problems 1 --runs 16
 
+    # NP-hard zoo (coloring / mis / vertex-cover / 3sat / tsp): the best
+    # configuration is decoded back to native form and verified
+    PYTHONPATH=src python -m repro_torch.launch.solve --solver tabu-jax \
+        --workload mis --spins 12 --runs 32
+
+    # the classical search tier at machine batch scale: tabu-jax (the
+    # best-known oracle over restarts x problems), pt-jax (parallel
+    # tempering), sa-jax; sa-numpy and tabu run on the host
+    PYTHONPATH=src python -m repro_torch.launch.solve --solver pt-jax \
+        --spins 48 --problems 8 --runs 64
+
 Any registered solver (``--list-solvers``) runs behind the same
 Problem/Suite/Report surface. The best-known oracle is disk-cached by
 problem content hash (``--no-cache`` bypasses it, ``--no-oracle`` skips
-it: the only sane setting at Gset scale). Everything runs on
+it: the only sane setting at Gset scale) and refreshed by the batched
+tabu-jax tier above the brute-force range. Everything runs on
 ``--torch-device`` (default ``cuda``; without CUDA the CLI raises unless
-given ``--torch-device cpu``). Workloads: ``random-qubo``, ``maxcut`` and
-``gset``; the zoo workloads and the ``--chips`` / ``--mesh-devices`` /
-variation options of the reference are not ported yet and raise.
+given ``--torch-device cpu``). Workloads: ``random-qubo``, ``maxcut``,
+``gset`` and the zoo; the ``--chips`` / ``--mesh-devices`` / variation
+options of the reference are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -33,8 +45,10 @@ from ..api import ProblemSuite, get_solver, list_solvers, solve_suite
 
 #: the reference's solvers and options that the port does not have yet, by
 #: the ROADMAP queue-1 step that ports them
-_NOT_YET_PORTED = {"sa-jax": 9, "sa-numpy": 9, "tabu": 9, "tabu-jax": 9,
-                   "pt-jax": 9, "ode-jax": 11, "fabric-jax": 13}
+_NOT_YET_PORTED = {"ode-jax": 11, "fabric-jax": 13}
+
+#: --workload values that are plain Problem constructors, not zoo entries.
+_BUILTIN = ("random-qubo", "maxcut", "gset")
 
 
 def _not_yet_ported(what: str, step: int) -> NotImplementedError:
@@ -44,9 +58,14 @@ def _not_yet_ported(what: str, step: int) -> NotImplementedError:
 
 def build_suite(workload: str, n: int, density: float, problems: int,
                 seed: int, degree: float | None = None) -> ProblemSuite:
-    """One suite for a workload name. ``gset`` is parameterized by the
-    expected vertex ``degree`` (default 6, the G1 class) instead of
-    ``density``."""
+    """One suite for any workload name: the built-ins keep the paper's
+    problem families; everything else resolves through the
+    ``repro_torch.workloads`` registry (``n`` is the native size: nodes /
+    variables / cities), and ``density`` reaches the generators that take
+    one. ``gset`` is parameterized by the expected vertex ``degree``
+    (default 6, the G1 class) instead of ``density``."""
+    import inspect
+
     from ..api import Problem
     if workload == "random-qubo":
         return ProblemSuite.random(n, density, problems, seed=seed)
@@ -58,7 +77,12 @@ def build_suite(workload: str, n: int, density: float, problems: int,
         deg = 6.0 if degree is None else float(degree)
         return ProblemSuite([gset_problem(n, seed=seed + i, degree=deg)
                              for i in range(problems)])
-    raise _not_yet_ported(f"workload {workload!r} (the workload zoo)", 10)
+    from ..workloads import get_workload
+    gen = get_workload(workload).random_instance
+    kw = {"density": density} \
+        if "density" in inspect.signature(gen).parameters else {}
+    return ProblemSuite.workload(workload, size=n, num_problems=problems,
+                                 seed=seed, **kw)
 
 
 def solve(n_spins: int, density: float, problems: int, runs: int,
@@ -103,6 +127,19 @@ def cut_lines(workload: str, suite: ProblemSuite, report) -> list[str]:
     return out
 
 
+def native_lines(workload: str, suite: ProblemSuite, report) -> list[str]:
+    """One line per problem: its best configuration decoded back to native
+    form and verified."""
+    from ..workloads import get_workload
+    wl = get_workload(workload)
+    out = []
+    for i, p in enumerate(suite):
+        res = wl.verify(p, wl.decode(p, report.best_sigma[i]))
+        out.append(f"[{workload} #{i}] feasible={res.feasible} "
+                   f"objective={res.objective:g} ({wl.sense})")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--solver", default="engine",
@@ -110,11 +147,17 @@ def main(argv=None):
     ap.add_argument("--list-solvers", action="store_true",
                     help="print the solver registry and exit")
     ap.add_argument("--workload", default="random-qubo",
-                    help="problem family: random-qubo, maxcut or gset")
-    ap.add_argument("--spins", type=int, default=64)
+                    help="problem family: random-qubo, maxcut, gset, or "
+                         "any registered zoo workload (coloring, mis, "
+                         "vertex-cover, 3sat, tsp)")
+    ap.add_argument("--spins", type=int, default=64,
+                    help="native size: spins for random-qubo / maxcut / "
+                         "gset, nodes / variables / cities for zoo "
+                         "workloads")
     ap.add_argument("--density", type=float, default=0.5,
-                    help="edge/coupling density for random-qubo and maxcut "
-                         "(not gset — see --degree)")
+                    help="edge/coupling density for random-qubo, maxcut "
+                         "and the density-taking zoo workloads (not gset — "
+                         "see --degree)")
     ap.add_argument("--degree", type=float, default=None,
                     help="[gset] expected vertex degree of the sparse "
                          "Max-Cut graph (default 6.0, the G1-class "
@@ -126,7 +169,8 @@ def main(argv=None):
                          "api.budget.search_effort: scales per-restart "
                          "iterations (anneal length for engine, outer "
                          "sweeps for chip-lns, integration steps for "
-                         "sb-jax), never the restart count")
+                         "sb-jax, sweeps for SA/PT, flips for tabu), never "
+                         "the restart count")
     ap.add_argument("--backend", choices=["scan", "fused", "auto"],
                     default="auto",
                     help="[engine/chip-lns] AnnealEngine path: scan (torch "
@@ -173,7 +217,10 @@ def main(argv=None):
         print(f"[engine] path={plan['path']} block_r={plan['block_r']} "
               f"j_dtype={plan['j_dtype']} ({plan['reason']})")
     print(report.summary())
-    if args.workload in ("maxcut", "gset"):
+    if args.workload not in _BUILTIN:
+        for line in native_lines(args.workload, suite, report):
+            print(line)
+    elif args.workload in ("maxcut", "gset"):
         for line in cut_lines(args.workload, suite, report):
             print(line)
 

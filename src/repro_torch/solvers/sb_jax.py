@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.binarize import sign_pm1
-from ..device import resolve_device
+from ..device import problem_generator, resolve_device
 from ..kernels.sb_kernel import check_variant, fused_sb_kernel
 
 #: init amplitude for positions/momenta (standard SB practice: start just
@@ -79,9 +79,7 @@ def sb_inits(P, n_restarts, n, n_true=None, seed: int = 0,
     x0 = torch.empty((P, n_restarts, n), dtype=torch.float32, device=dev)
     y0 = torch.empty_like(x0)
     for p in range(P):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(np.random.SeedSequence(
-            [int(seed) % 2**64, p]).generate_state(1, np.uint64)[0]))
+        gen = problem_generator(seed, p, dev)
         x0[p].uniform_(-INIT_AMP, INIT_AMP, generator=gen)
         y0[p].uniform_(-INIT_AMP, INIT_AMP, generator=gen)
     if n_true is not None:

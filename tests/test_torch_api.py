@@ -25,6 +25,7 @@ from repro_torch.metrics import success as t_success
 from repro_torch.problems import problem_set as t_problem_set
 from repro_torch.solvers.brute_force import brute_force_ground_state as t_brute
 from repro_torch.solvers.tabu import tabu_search as t_tabu
+from repro_torch.solvers.tabu_jax import tabu_search_jax_runs as t_tabu_jax
 
 CPU = "cpu"
 
@@ -215,7 +216,10 @@ def test_noise_variant_and_brute_force_solver(caches):
                            solver="brute-force")
     assert np.array_equal(ref.best_energy, exact.best_energy)
     assert set(tapi.list_solvers()) == {"engine", "brute-force", "sb-jax",
-                                        "chip-lns"}
+                                        "chip-lns", "sa-jax", "sa-numpy",
+                                        "tabu", "tabu-jax", "pt-jax"}
+    assert set(tapi.list_solvers()) == set(rapi.list_solvers()) - {
+        "ode-jax", "fabric-jax"}
     with pytest.raises(ValueError, match="max_n"):
         tapi.solve_suite(tapi.ProblemSuite.random(n=70, density=0.5,
                                                   num_problems=1, seed=0),
@@ -229,17 +233,20 @@ def test_oracle_tiers_and_own_cache(caches):
                                      seed=4)
     path = t_oracle.cache_path()
     assert path == str(caches / "t_oracle.json")
-    e = tapi.best_known_energies(small + large)
+    e = tapi.best_known_energies(small + large, torch_device=CPU)
     cache = t_oracle._load(path)
     methods = [cache[p.content_hash]["method"] for p in small + large]
-    assert methods == ["brute_force", "brute_force", "tabu"]
+    assert methods == ["brute_force", "brute_force", "tabu-jax"]
     assert e[0] == t_brute(small[0].J_levels)[0]
-    assert e[2] == t_tabu(large[0].J_levels,
-                          n_restarts=t_oracle.TABU_JAX_ORACLE_RESTARTS,
-                          seed=0)[0]
+    # the batched tier: tabu-jax with the oracle's seed and restarts, the
+    # problem padded to its 64-spin bucket
+    (bucket,) = large.buckets()
+    assert e[2] == t_tabu_jax(
+        bucket.J, n_true=[26], n_restarts=t_oracle.TABU_JAX_ORACLE_RESTARTS,
+        seed=0, torch_device=CPU)[0].min()
     assert not (caches / "r_oracle.shards").exists()
     # a cache hit skips the search; a strictly better candidate upgrades it
-    again = tapi.best_known_energies(small + large)
+    again = tapi.best_known_energies(small + large, torch_device=CPU)
     assert np.array_equal(again, e)
     better = tapi.reconcile_best_known(large, e[2:] - 2.0, method="test")
     assert better[0] == e[2] - 2.0

@@ -24,7 +24,8 @@ def _env(**extra):
 def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
             "repro_torch.kernels, repro_torch.convert, repro_torch.problems, "
-            "repro_torch.solvers, repro_torch.launch.solve; "
+            "repro_torch.solvers, repro_torch.workloads, "
+            "repro_torch.launch.solve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -48,18 +49,41 @@ def _no_cuda(monkeypatch):
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.api import ProblemSuite, get_solver, solve_suite
     from repro_torch.core import AnnealEngine, IsingMachine
+    from repro_torch.api import best_known_energies
     from repro_torch.launch.solve import solve
+    from repro_torch.solvers import (parallel_tempering_jax_runs,
+                                     simulated_annealing_jax_runs,
+                                     tabu_search_jax_runs)
+    from repro_torch.solvers.pt_jax import pt_draws
+    from repro_torch.solvers.sa_jax import sa_draws
     from repro_torch.solvers.sb_jax import simulated_bifurcation_jax_runs
+    from repro_torch.solvers.tabu_jax import tabu_draws
     _no_cuda(monkeypatch)
     suite = ProblemSuite.random(n=8, density=0.5, num_problems=1, seed=0)
+    J = suite[0].J_levels
     for call in (lambda: solve_suite(suite, runs=2),
                  lambda: solve_suite(suite, solver="brute-force"),
                  lambda: solve_suite(suite, solver="sb-jax", runs=2),
+                 lambda: solve_suite(suite, solver="tabu-jax", runs=2),
                  lambda: get_solver("engine"),
                  lambda: get_solver("brute-force"),
                  lambda: get_solver("sb-jax"),
                  lambda: get_solver("chip-lns"),
-                 lambda: simulated_bifurcation_jax_runs(suite[0].J_levels),
+                 lambda: get_solver("sa-jax"),
+                 lambda: get_solver("pt-jax"),
+                 lambda: get_solver("tabu-jax"),
+                 lambda: get_solver("sa-numpy"),
+                 lambda: get_solver("tabu"),
+                 lambda: best_known_energies(suite),
+                 lambda: simulated_bifurcation_jax_runs(J),
+                 lambda: simulated_annealing_jax_runs(J),
+                 lambda: parallel_tempering_jax_runs(J),
+                 lambda: tabu_search_jax_runs(J),
+                 lambda: sa_draws(1, 2, 8, 3),
+                 lambda: pt_draws(1, 2, 4, 8, 3),
+                 lambda: tabu_draws(1, 2, 8, 3),
+                 lambda: solve(12, 0.5, 1, 2, solver="tabu-jax",
+                               workload="mis", oracle=False),
                  lambda: solve(8, 0.5, 1, 2, solver="sb-jax", oracle=False),
                  lambda: IsingMachine(),
                  lambda: AnnealEngine(),
@@ -73,6 +97,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     rep = solve_suite(suite, solver="sb-jax", runs=2, budget=0.05,
                       torch_device="cpu", oracle=False)
     assert rep.meta["torch_device"] == "cpu"
+    for name in ("sa-jax", "pt-jax", "tabu-jax"):
+        rep = solve_suite(suite, solver=name, runs=2, budget=0.05,
+                          torch_device="cpu", oracle=False)
+        assert rep.meta["torch_device"] == "cpu", name
 
 
 def test_solve_cli_raises_without_cuda_unless_asked_for_the_cpu():

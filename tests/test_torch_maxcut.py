@@ -281,8 +281,8 @@ def test_cli_main_prints_plan_summary_and_cuts(capsys, tmp_path,
 
 
 @pytest.mark.parametrize("kwargs,step", [
-    ({"workload": "mis"}, 10), ({"chips": 4}, 11),
-    ({"mesh_devices": 8}, 13), ({"solver": "tabu-jax"}, 9)])
+    ({"solver": "ode-jax"}, 11), ({"chips": 4}, 11),
+    ({"mesh_devices": 8}, 13), ({"solver": "fabric-jax"}, 13)])
 def test_cli_refuses_what_is_not_ported_yet(kwargs, step):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 step {step}"):
