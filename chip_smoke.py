@@ -56,7 +56,10 @@ exits nonzero:
                 per-restart energies recomputed in float64 from their
                 spins, SR, the bucket's wall, kernels per flip step),
                 sa-numpy and tabu at 16; the same draws on the card and on
-                the CPU (tabu-jax bitwise, sa-jax / pt-jax to the tie rule);
+                the CPU (tabu-jax bitwise, sa-jax / pt-jax to the tie rule),
+                and a seeded solve with nothing injected on both (the same
+                rule; sb-jax bitwise); pt-jax on the fig5 grid at 1024
+                restarts (its wall and peak allocated memory);
                 the oracle's tabu-jax tier at or below host tabu on every
                 problem; the oracle refresh of the fig5 grid, one tabu-jax
                 batch per pad bucket, timed.
@@ -66,6 +69,23 @@ exits nonzero:
                 sb-jax the SB kernel); every anneal variant against its
                 plain version on the zoo's buckets, whose levels pass the
                 DAC's 15 (TSP 60, a star encoding 118).
+ 12. physics  — ode-jax through solve_suite on the 64-spin suite at 1024
+                restarts (perturbation vs gd, SR against the oracle, one
+                dispatch each, kernels an Euler step from torch.profiler);
+                the discrete limit bitwise against the port's scan path on
+                the card; the reference's robustness surface (1032 virtual
+                chips, 4 restarts, noise 0.1) in exactly two dispatches,
+                gates SR(perturbation) > 0 and >= SR(baseline) at the
+                nominal corner, the reference's recorded SR beside it;
+                counter-based normals on the card against the CPU.
+ 13. serve    — an IsingService over engine (the anneal kernel) at the
+                serve CLI's sizes 16/32/64, runs 32, max batch 64: a burst
+                of 128 requests, one dispatch per coalesced bucket, every
+                result revalidated in float64; a chaos run whose seeded
+                plan crashes every primary dispatch, answered by the
+                fallback chain's sb-jax rung (the SB kernel); a 2-worker
+                IsingFleet with one worker killed (zero lost tickets);
+                launch/serve_ising.py in a subprocess.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -397,8 +417,8 @@ def check_anneal_refusals(J, v0):
                                    plan=dataclasses.replace(
                                        pick, **{field: value}))
             refused[field] = None
-        except RuntimeError as err:
-            refused[field] = str(err).rsplit(":", 1)[-1].strip()
+        except ValueError as err:          # a refusal, not a launch failure
+            refused[field] = str(err).split(" the launch plan")[0]
     emit({"phase": "compare", "refusals": refused})
     check(all(refused.values()), f"an unrunnable plan was launched: "
           f"{refused}")
@@ -842,8 +862,8 @@ def check_sb_refusals(Jc, x0, y0):
                     pl, **{field: value})):
                 sbk.fused_sb_kernel(Jc, x0, y0, n_steps=1)
             refused[field] = None
-        except RuntimeError as err:
-            refused[field] = str(err).rsplit(":", 1)[-1].strip()
+        except ValueError as err:          # a refusal, not a launch failure
+            refused[field] = str(err).split(" the launch plan")[0]
     emit({"phase": "sb_compare", "refusals": refused})
     check(all(refused.values()), f"an unrunnable plan was launched: "
           f"{refused}")
@@ -1212,16 +1232,21 @@ def first_divergences(name, draws, calls_a, calls_b, n, R):
     return out
 
 
-def cross_device(name, J, n_true):
-    """The same draws (made on the card) on the card and on the CPU: tabu-jax
-    bitwise; sa-jax / pt-jax restarts equal, a differing one only past a
-    decision whose two probabilities are within 2 ULP, at most 1% of
-    restarts."""
+def cross_device(name, J, n_true, injected=True):
+    """One solve on the card and on the CPU: tabu-jax bitwise; sa-jax /
+    pt-jax restarts equal, a differing one only past a decision whose two
+    probabilities are within 2 ULP, at most 1% of restarts. ``injected``:
+    the same whole-stream draws, made on the card, handed to both; else a
+    seeded solve with nothing injected, each device drawing its own
+    counter-based draws a sweep at a time."""
     import numpy as np
     import torch
     P, n = J.shape[0], J.shape[-1]
-    draws = search_draws(name, P, CROSS_RUNS, n, n_true, "cuda")
-    cpu_draws = tuple(d.cpu() for d in draws)
+    if injected:
+        draws = search_draws(name, P, CROSS_RUNS, n, n_true, "cuda")
+        cpu_draws = tuple(d.cpu() for d in draws)
+    else:
+        draws = cpu_draws = None
     threads = torch.get_num_threads()
     torch.set_num_threads(1)         # small CPU ops: one thread is fastest
     try:
@@ -1230,6 +1255,7 @@ def cross_device(name, J, n_true):
                           cpu_draws)
         differ = ((card[0] != cpu[0]) | (card[1] != cpu[1]).any(-1))
         row = {"solver": name, "shape": [P, CROSS_RUNS, n],
+               "draws": "injected" if injected else "seeded",
                "restarts_differing": int(differ.sum()),
                "all_outputs_equal": all(np.array_equal(a, b)
                                         for a, b in zip(card, cpu))}
@@ -1243,8 +1269,12 @@ def cross_device(name, J, n_true):
             with exp_spy(calls_cpu):
                 search_runs(name, J, n_true, CROSS_RUNS, SEED, "cpu",
                             cpu_draws)
-            first = first_divergences(name, cpu_draws, calls_card,
-                                      calls_cpu, n, CROSS_RUNS)
+            # a seeded solve's draws, materialised for the analysis: the
+            # whole stream equals the per-sweep draws (tests/test_torch_rng)
+            seen = cpu_draws if injected else search_draws(
+                name, P, CROSS_RUNS, n, n_true, "cpu")
+            first = first_divergences(name, seen, calls_card, calls_cpu, n,
+                                      CROSS_RUNS)
             row["first_divergence_ulps"] = sorted(first.values())
             unexplained = {(int(p), int(r))
                            for p, r in zip(*np.nonzero(differ))} - set(first)
@@ -1359,6 +1389,8 @@ def phase_search(oracle_path):
                   "is not that of its spins (float64)")
             row.update(launches_per_step(name, J, n_true))
             row["same_draws_card_vs_cpu"] = cross_device(name, J, n_true)
+            row["seeded_card_vs_cpu"] = cross_device(name, J, n_true,
+                                                     injected=False)
         m = rep.metrics()
         row.update(success_rate=[float(x) for x in m["success_rate"]],
                    mean_success_rate=m["mean_success_rate"],
@@ -1409,7 +1441,77 @@ def phase_search(oracle_path):
             "refresh_s": refresh_s, "finite": bool(np.isfinite(bk).all())}})
         check(len(batches) == expect >= 1 and np.isfinite(bk).all(),
               f"grid refresh: {len(batches)} batches, {expect} buckets")
+    emit({"phase": "search", "sb_seeded_card_vs_cpu":
+          sb_cross_device(J, n_true)})
+    emit({"phase": "search", "pt_grid": pt_on_the_grid()})
     return out
+
+
+def sb_cross_device(J, n_true):
+    """A seeded sb-jax solve (no injected inits) on the card and on the
+    CPU: energies and spins bitwise equal (the inits are counter-based, the
+    kernel is bitwise its plain version, and the plain version rounds each
+    op once on either device)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.solvers.sb_jax import simulated_bifurcation_jax_runs
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = {dev: simulated_bifurcation_jax_runs(
+            J, n_true=n_true, n_restarts=CROSS_RUNS, seed=SEED,
+            torch_device=dev) for dev in ("cuda", "cpu")}
+    finally:
+        torch.set_num_threads(threads)
+    equal = all(np.array_equal(a, b) for a, b in zip(out["cuda"],
+                                                     out["cpu"]))
+    row = {"shape": [J.shape[0], CROSS_RUNS, J.shape[-1]],
+           "all_outputs_equal": equal}
+    check(equal, f"sb-jax: seeded card and CPU solves differ ({row})")
+    return row
+
+
+#: the whole-stream PT draws the fig5 grid at RUNS restarts would hold:
+#: int32 orders + float32 uniforms over (P, R, T, K, n)
+def pt_grid_whole_stream_bytes(P, n):
+    return P * RUNS * PT_SWEEPS * PT_RUNGS * n * 8
+
+
+def pt_on_the_grid():
+    """pt-jax on ``ProblemSuite.grid()`` (one (400, 64, 64) bucket) at RUNS
+    restarts, its draws made a sweep at a time: the wall and the peak of
+    ``torch.cuda.max_memory_allocated`` over the solve."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ProblemSuite, solve_suite
+    grid = ProblemSuite.grid()
+    (bucket,) = grid.buckets()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rep = solve_suite(grid, solver="pt-jax", runs=RUNS, seed=SEED,
+                      torch_device="cuda", oracle=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    whole = pt_grid_whole_stream_bytes(*bucket.J.shape[:2])
+    row = {"shape": [bucket.J.shape[0], RUNS, PT_RUNGS, bucket.n_pad],
+           "sweeps": PT_SWEEPS, "wall_s": wall, "solve_wall_s": rep.wall_s,
+           "peak_allocated_gib": peak / 2**30,
+           "allocated_before_gib": before / 2**30,
+           "whole_stream_draws_gib": whole / 2**30,
+           "dispatches": rep.dispatches,
+           "mean_swap_acceptances": float(np.mean(
+               rep.meta["swap_acceptances"]))}
+    check(rep.dispatches == 1 and all(len(e) == RUNS and np.isfinite(e).all()
+                                      for e in rep.energies),
+          f"pt-jax on the grid: {row}")
+    check(peak < whole, f"pt-jax on the grid peaked at {peak} bytes, more "
+          f"than its whole-stream draws ({whole})")
+    return row
 
 
 #: the reference's native sizes of the zoo round trip (tests/test_workloads.py)
@@ -1510,8 +1612,319 @@ def phase_zoo():
                   st["max_sr_gap"] <= 0.03, f"{what}: {st}")
 
 
+#: the reference's robustness surface (benchmarks/device_robustness.py at
+#: its quick size): instance seed 77, 3 mismatch x 2 leakage-spread corners
+#: of 172 chips each, 4 restarts, thermal noise 0.1, 2 Euler substeps a slot
+ROBUST_SEED, ROBUST_CHIPS, ROBUST_RESTARTS = 77, 172, 4
+ROBUST_SIGMAS, ROBUST_SPREADS = (0.0, 0.05, 0.15), (0.0, 0.3)
+ROBUST_NOISE, ROBUST_VARIATION_SEED, ROBUST_NOISE_KEY = 0.1, 100, 7
+#: the reference's nominal corner, recorded in BENCH_device.json (a CPU run
+#: of the JAX package: quality, not speed)
+ROBUST_RECORDED = {"sr_perturbation": 0.34738372093023256,
+                   "sr_baseline": 0.0}
+
+
+def ode_kernels_per_step(params, chips, dev, pert, J, v0):
+    """Device kernels (torch.profiler, CUDA activity) one Euler step of
+    ``fleet_anneal`` launches: the difference between anneals of 32 and 64
+    steps, so set-up launches cancel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.physics import fleet_anneal
+    counts = []
+    for steps in (32, 64):
+        d = dataclasses.replace(dev, anneal_sweeps=steps / (
+            dev.slots_per_sweep * dev.substeps))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fleet_anneal(J, v0, d, pert, params=params, chips=chips,
+                         key=ROBUST_NOISE_KEY, torch_device="cuda")
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA))
+    return {"kernels_per_step": (counts[1] - counts[0]) / 32
+            if counts[0] else None, "kernels_profiled": counts}
+
+
+def normals_card_vs_cpu():
+    """Counter-based normals of one (8, 1024, 64) step drawn on the card
+    and on the CPU: the largest difference in float32 ULP of the larger
+    magnitude, held to ``rng.NORMAL_ULP_BOUND``."""
+    import numpy as np
+
+    from repro_torch import rng
+    k = rng.key(SEED, 1)
+    z = [rng.normal(*rng.bits(k, 3, rng.counters((8, RUNS, 64), dev)))
+         .cpu().numpy() for dev in ("cuda", "cpu")]
+    ulp = np.spacing(np.maximum(np.abs(z[0]), np.abs(z[1])))
+    worst = float(np.max(np.abs(z[0] - z[1]) / ulp))
+    row = {"elements": int(z[0].size), "max_ulps": worst,
+           "differing": int((z[0] != z[1]).sum()),
+           "bound_ulps": rng.NORMAL_ULP_BOUND}
+    check(worst <= rng.NORMAL_ULP_BOUND, f"normals card vs CPU: {row}")
+    return row
+
+
+def phase_physics(oracle_path):
+    """The physics tier on the card: ode-jax through ``solve_suite`` on the
+    64-spin suite at RUNS restarts (perturbation and gd, SR against the
+    oracle, one dispatch each, kernels an Euler step); the discrete limit
+    bitwise against the port's scan path on the card; the reference's
+    robustness surface (1032 chips in two dispatches) with its gates and
+    its recorded SR beside; counter-based normals card vs CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import ProblemSuite, best_known_energies, solve_suite
+    from repro_torch.core import (DEFAULT_PERTURBATION, NOMINAL, DeviceModel,
+                                  anneal)
+    from repro_torch.core.lfsr import lfsr_voltage_inits
+    from repro_torch.metrics.success import success_rate
+    from repro_torch.physics import (DEFAULT_PHYSICS, DISCRETE_LIMIT,
+                                     ChipVariation, PhysicsParams,
+                                     VariationModel, dispatch_count,
+                                     fleet_anneal, reset_dispatch_count)
+    suite = ProblemSuite.random(**SUITE)
+    out = {}
+    for variant in ("perturbation", "gd"):
+        reset_dispatch_count()
+        rep = solve_suite(suite, solver="ode-jax", runs=RUNS, seed=SEED,
+                          torch_device="cuda", oracle_path=oracle_path,
+                          variant=variant)
+        check(rep.dispatches == dispatch_count() == 1,
+              f"ode-jax {variant}: {rep.dispatches} dispatches")
+        check(all(len(e) == RUNS and np.isfinite(e).all()
+                  for e in rep.energies), f"ode-jax {variant}: energies")
+        for i, p in enumerate(suite):
+            s = rep.best_sigma[i].astype(np.float64)
+            check(-0.5 * s @ p.J_levels.astype(np.float64) @ s ==
+                  rep.best_energy[i], f"ode-jax {variant} problem {i}: "
+                  "best energy is not its spins'")
+        m = rep.metrics()
+        out[variant] = {"mean_success_rate": m["mean_success_rate"],
+                        "success_rate": [float(x) for x in
+                                         m["success_rate"]],
+                        "wall_s": rep.wall_s}
+        emit({"phase": "physics", "solver": "ode-jax", "variant": variant,
+              **out[variant], "best_energy": rep.best_energy.tolist(),
+              "best_known": rep.best_known.tolist()})
+
+    # the discrete limit against the port's scan path, on the card
+    dev = DeviceModel()
+    J, v0 = main_path_inputs(suite, RUNS, SEED, dev)
+    for label, d, pert in (("perturbation", dev, DEFAULT_PERTURBATION),
+                           ("gd", variants()["int8"][0], NOMINAL)):
+        ref = anneal(J, v0, d, pert)
+        ode = fleet_anneal(J, v0, d, pert, params=DISCRETE_LIMIT,
+                           torch_device="cuda")
+        same = (torch.equal(ode.v_final[0], ref.v_final) and
+                torch.equal(ode.sigma[0], ref.sigma))
+        emit({"phase": "physics", "discrete_limit": label,
+              "shape": list(v0.shape), "bitwise_vs_scan": same})
+        check(same, f"discrete limit ({label}) differs from the scan path")
+    out["kernels_per_step_nominal"] = ode_kernels_per_step(
+        DEFAULT_PHYSICS, None, dev, DEFAULT_PERTURBATION, J, v0)
+
+    # the robustness surface: every corner's chips in one fleet
+    rsuite = ProblemSuite.random(64, 0.5, 1, seed=ROBUST_SEED)
+    bk = best_known_energies(rsuite, seed=2, path=oracle_path,
+                             torch_device="cuda")
+    (bucket,) = rsuite.buckets(64)
+    rdev = dataclasses.replace(DeviceModel(), substeps=2)
+    rv0 = np.stack([lfsr_voltage_inits(64, ROBUST_RESTARTS,
+                                       seed=1 + 7919 * p, vdd=rdev.vdd,
+                                       swing=rdev.init_swing)
+                    for p in range(bucket.J.shape[0])])
+    corners = [(m, t) for m in ROBUST_SIGMAS for t in ROBUST_SPREADS]
+    chips = ChipVariation.concat([
+        VariationModel(j_mismatch_sigma=m, tau_leak_spread=t).sample(
+            ROBUST_VARIATION_SEED + i, ROBUST_CHIPS, 64)
+        for i, (m, t) in enumerate(corners)])
+    params = PhysicsParams(noise_sigma=ROBUST_NOISE)
+    reset_dispatch_count()
+    res, walls = {}, {}
+    for label, pert in (("perturbation", DEFAULT_PERTURBATION),
+                        ("baseline", NOMINAL)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[label] = fleet_anneal(bucket.J, rv0, rdev, pert, params=params,
+                                  chips=chips, key=ROBUST_NOISE_KEY,
+                                  torch_device="cuda").energy.cpu().numpy()
+        walls[label] = time.perf_counter() - t0
+    dispatches = dispatch_count()
+    surface = []
+    for i, (m, t) in enumerate(corners):
+        sl = slice(i * ROBUST_CHIPS, (i + 1) * ROBUST_CHIPS)
+        sr = {k: float(success_rate(v[sl].reshape(1, -1), bk)[0])
+              for k, v in res.items()}
+        surface.append({"mismatch_sigma": m, "tau_leak_spread": t,
+                        "sr_perturbation": sr["perturbation"],
+                        "sr_baseline": sr["baseline"],
+                        "best_perturbation": float(
+                            res["perturbation"][sl].min()),
+                        "best_baseline": float(res["baseline"][sl].min())})
+    nominal = surface[0]
+    row = {"chips": chips.n_chips, "restarts": ROBUST_RESTARTS,
+           "best_known": float(bk[0]), "dispatches": dispatches,
+           "dispatch_wall_s": walls, "surface": surface,
+           "nominal_corner": nominal,
+           "reference_recorded_nominal": ROBUST_RECORDED,
+           **ode_kernels_per_step(params, chips, rdev, DEFAULT_PERTURBATION,
+                                  bucket.J, rv0)}
+    emit({"phase": "physics", "robustness": row})
+    check(dispatches == 2, f"robustness surface: {dispatches} dispatches")
+    check(nominal["sr_perturbation"] > 0 and
+          nominal["sr_perturbation"] >= nominal["sr_baseline"],
+          f"robustness gates at the nominal corner: {nominal}")
+    out["robustness"] = row
+    out["normals"] = normals_card_vs_cpu()
+    emit({"phase": "physics", "normals_card_vs_cpu": out["normals"],
+          "kernels_per_step_nominal": out["kernels_per_step_nominal"]})
+    return out
+
+
+#: the serve CLI's problem mix and sizes (launch/serve_ising.py defaults)
+SERVE_SIZES, SERVE_RUNS, SERVE_MAX_BATCH, SERVE_BURST = (16, 32, 64), 32, 64, 128
+
+
+def serve_pool(count, seed=0):
+    from repro_torch.api import Problem
+    return [Problem.random_qubo(SERVE_SIZES[i % len(SERVE_SIZES)], 0.5,
+                                seed=seed + i) for i in range(count)]
+
+
+def phase_serve():
+    """The serving stack on the card: an ``IsingService`` over ``engine``
+    (the anneal kernel) takes a burst of SERVE_BURST distinct problems at
+    the serve CLI's sizes (one dispatch per coalesced bucket, every result
+    revalidated in float64); a chaos run whose seeded plan crashes every
+    primary dispatch, answered down ``DEFAULT_FALLBACK_CHAIN`` (sb-jax: the
+    SB kernel); a 2-worker ``IsingFleet`` with one worker killed on its
+    first flush (zero lost tickets); ``launch/serve_ising.py`` in a
+    subprocess."""
+    from types import MappingProxyType
+
+    import numpy as np
+
+    from repro_torch.kernels import ising_anneal as ka
+    from repro_torch.kernels import sb_kernel as sbk
+    from repro_torch.serve import (DEFAULT_FALLBACK_CHAIN, FaultPlan,
+                                   IsingFleet, IsingService,
+                                   ResiliencePolicy, validate_row)
+    pool = serve_pool(SERVE_BURST)
+    ka.reset_launches()
+    sbk.reset_launches()
+    common = dict(solver="engine", runs=SERVE_RUNS, seed=SEED,
+                  max_batch=SERVE_MAX_BATCH, max_wait_s=0.05, cache=False,
+                  torch_device="cuda")
+    with IsingService(**common) as svc:
+        svc.submit(pool[0]).result(timeout=300)        # kernel build, warm
+        t0 = time.perf_counter()
+        tickets = svc.submit_many(pool)
+        results = [t.result(timeout=300) for t in tickets]
+        burst_s = time.perf_counter() - t0
+        stats = svc.stats()
+    valid = [validate_row(p, r.energies, r.sigma) for p, r in
+             zip(pool, results)]
+    burst = {"requests": len(pool), "sizes": list(SERVE_SIZES),
+             "runs": SERVE_RUNS, "max_batch": SERVE_MAX_BATCH,
+             "flushes": stats["flushes"], "dispatches": stats["dispatches"],
+             "mean_batch": stats["mean_batch"], "wall_s": burst_s,
+             "problems_per_s": len(pool) / burst_s,
+             "p50_latency_s": stats["p50_latency_s"],
+             "p95_latency_s": stats["p95_latency_s"],
+             "revalidated": sum(valid),
+             "validation_failures": stats["resilience"][
+                 "validation_failures"],
+             "anneal_launches": dict(ka.launches)}
+    emit({"phase": "serve", "burst": burst})
+    check(stats["dispatches"] == stats["flushes"] and stats["errors"] == 0,
+          f"serve burst: {stats['flushes']} flushes, "
+          f"{stats['dispatches']} dispatches, {stats['errors']} errors")
+    check(stats["flushes"] <= 1 + -(-len(pool) // SERVE_MAX_BATCH),
+          f"serve burst did not coalesce: {stats['flushes']} flushes")
+    check(all(valid) and burst["validation_failures"] == 0,
+          "serve burst: a result failed float64 revalidation")
+    check(sum(ka.launches.values()) >= stats["dispatches"],
+          f"serve burst: anneal kernel launches {dict(ka.launches)}")
+
+    # chaos: every primary dispatch crashes; the fallback chain answers
+    crash = FaultPlan.from_rates(seed=11, rate=1.0, kinds=("worker_crash",),
+                                 horizon=64)
+    chaos_pool = serve_pool(24, seed=1000)
+    policy = ResiliencePolicy(fallback=DEFAULT_FALLBACK_CHAIN,
+                              breaker_cooldown_s=60.0)
+    sbk.reset_launches()
+    with IsingService(**{**common, "max_wait_s": 0.5}, resilience=policy,
+                      fault_plan=crash) as svc:
+        results = [t.result(timeout=300)
+                   for t in svc.submit_many(chaos_pool)]
+        stats = svc.stats()
+    chaos = {"requests": len(chaos_pool),
+             "answered": sum(r is not None for r in results),
+             "degraded": sum(r.degraded for r in results),
+             "solvers": sorted({r.solver for r in results}),
+             "revalidated": sum(validate_row(p, r.energies, r.sigma)
+                                for p, r in zip(chaos_pool, results)),
+             "injected": stats["faults"]["injected"],
+             "resilience": {k: stats["resilience"][k] for k in
+                            ("breaker_trips", "fallback_solves",
+                             "failed_requests")},
+             "sb_launches": dict(sbk.launches)}
+    emit({"phase": "serve", "chaos": chaos})
+    check(chaos["answered"] == chaos["revalidated"] == len(chaos_pool) and
+          stats["errors"] == 0, f"serve chaos lost or spoiled tickets: "
+          f"{chaos}")
+    check(chaos["solvers"] == ["sb-jax"] and sum(sbk.launches.values()) > 0,
+          f"serve chaos: the sb-jax rung did not answer on its kernel "
+          f"({chaos})")
+
+    # a 2-worker fleet; the worker that owns the first problem's batch key
+    # is killed on its first flush
+    from repro_torch.distributed.elastic import rendezvous_route
+    from repro_torch.serve.service import batch_key
+    fleet_pool = serve_pool(48, seed=2000)
+    owners = [rendezvous_route(repr(batch_key(p, 1.0, 16)), ["w0", "w1"])
+              for p in fleet_pool]
+    plan = FaultPlan(seed=SEED, schedule=MappingProxyType(
+        {(f"worker:{owners[0]}", 0): "worker_crash"}))
+    with IsingFleet(workers=2, fault_plan=plan, block=16,
+                    **{**common, "max_wait_s": 0.25}) as fleet:
+        tickets = [fleet.submit(p, budget=1.0) for p in fleet_pool]
+        results = [t.result(timeout=300) for t in tickets]
+        fstats = fleet.stats()["fleet"]
+    fl = {"workers": 2, "requests": len(fleet_pool),
+          "killed": owners[0], "key_owners": sorted(set(owners)),
+          "worker_crashes": fstats["worker_crashes"], "lost": fstats["lost"],
+          "errors": fstats["errors"],
+          "reclaimed": fstats["ledger"]["reclaimed"],
+          "resolved_ok": fstats["ledger"]["resolved_ok"],
+          "revalidated": sum(validate_row(p, r.energies, r.sigma)
+                             for p, r in zip(fleet_pool, results))}
+    emit({"phase": "serve", "fleet": fl})
+    check(fl["worker_crashes"] == 1 and fl["lost"] == 0 and
+          fl["errors"] == 0 and fl["resolved_ok"] == len(fleet_pool) ==
+          fl["revalidated"], f"serve fleet: {fl}")
+
+    # the serve CLI, a few seconds, as a user runs it
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_ising",
+           "--solver", "engine", "--duration", "4", "--clients", "4",
+           "--pool", "16"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=ROOT, env=dict(os.environ,
+                                             PYTHONPATH=os.path.join(ROOT,
+                                                                     "src")))
+    final = [line for line in proc.stdout.splitlines()
+             if line.startswith("-- final:")]
+    emit({"phase": "serve", "cli_rc": proc.returncode,
+          "cli_final": final[0] if final else None})
+    check(proc.returncode == 0 and final, f"serve_ising: rc "
+          f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return {"burst": burst, "chaos": chaos, "fleet": fl}
+
+
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
-          "gset", "sb_timing", "search", "zoo")
+          "gset", "sb_timing", "search", "zoo", "physics", "serve")
 
 
 def main(argv=None) -> int:
@@ -1553,6 +1966,8 @@ def main(argv=None) -> int:
             "sb_timing": phase_sb_timing,
             "search": lambda: phase_search(oracle_path),
             "zoo": phase_zoo,
+            "physics": lambda: phase_physics(oracle_path),
+            "serve": phase_serve,
         }
         out = {name: run[name]() for name in PHASES if name in phases}
     emit({"phase": "end", "total_s": time.perf_counter() - START})

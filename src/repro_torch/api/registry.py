@@ -17,8 +17,9 @@ Registered here: ``engine`` (the digital twin on the AnnealEngine, variants
 its own kernel; the reference's name), ``chip-lns`` (block decomposition of
 N > 64 onto the engine), the classical search tier (``sa-jax``, ``pt-jax``
 and ``tabu-jax``: batched torch loops, one batch per pad bucket; ``sa-numpy``
-and ``tabu``: host numpy loops, one call per problem) and ``brute-force``
-(exact). Every solver takes ``torch_device`` (default ``"cuda"``; raises
+and ``tabu``: host numpy loops, one call per problem), ``ode-jax`` (the
+analog device-physics tier over a virtual-chip fleet, one batched call per
+pad bucket) and ``brute-force`` (exact). Every solver takes ``torch_device`` (default ``"cuda"``; raises
 without CUDA unless it is ``"cpu"``).
 """
 from __future__ import annotations
@@ -230,7 +231,9 @@ class EngineSolver:
 
     ``variant``: 'perturbation' (paper default), 'gd' (no-perturbation
     gradient-descent baseline), 'noise' (inherent-circuit-noise baseline,
-    its ``torch.Generator`` seeded with ``seed + 10007 * bucket``).
+    its per-step normals drawn by ``rng`` from ``seed + 10007 * bucket``,
+    made on the solve's device and equal across devices to within
+    ``rng.NORMAL_ULP_BOUND``).
     ``budget`` multiplies the anneal length (sweeps). Couplings are passed
     in level space with ``quantize=False``. ``machine`` overrides the
     machine the variant would build (its own torch device then applies).
@@ -277,13 +280,11 @@ class EngineSolver:
         machine = self._make_machine(budget)
 
         def run_bucket(bucket, b_idx):
-            gen = None
-            if self.variant == "noise":
-                gen = torch.Generator(device=machine.torch_device)
-                gen.manual_seed(seed + 10007 * b_idx)
+            noise_seed = (seed + 10007 * b_idx if self.variant == "noise"
+                          else None)
             out = machine.solve(bucket.J, num_runs=runs,
-                                seed=seed + 7919 * b_idx, generator=gen,
-                                quantize=False)
+                                seed=seed + 7919 * b_idx,
+                                noise_seed=noise_seed, quantize=False)
             return out.energy, out.sigma
 
         buckets = suite.buckets(block)
@@ -691,6 +692,106 @@ class ChipLNSSolver:
             sizes=suite.sizes, scales=tuple(p.scale for p in suite),
             wall_s=wall, compile_s=compile_s, dispatches=dispatches,
             meta=meta)
+
+
+@register_solver("ode-jax", needs_oracle=True, exact=False, device="torch",
+                 max_n=CHIP_BLOCK)
+class OdeSolver:
+    """The analog device-physics tier (``repro_torch.physics``):
+    continuous-time coupled nodal ODEs (saturating sigma nonlinearity,
+    bistable latch, RC relaxation, thermal noise) driven by the same
+    column-refresh / leakage / perturbation schedule as the discrete engine,
+    integrated fixed-step (Euler–Maruyama or stochastic Heun) over (chips x
+    problems x restarts): a variation-aware virtual-chip fleet costs ONE
+    batched call per pad bucket. The name keeps the reference's.
+
+    ``variation`` (a :class:`repro_torch.physics.VariationModel`) +
+    ``n_chips`` turn one solve into a fleet sweep: per-chip J mismatch,
+    leakage spread, refresh jitter and gain offsets are deterministic
+    seeded draws (``chip_seed + bucket``), and every chip's runs land in the
+    report (``runs`` restarts x ``n_chips`` chips rows per problem,
+    chip-major). ``variant='gd'`` is the no-perturbation ideal-refresh
+    baseline, like the engine's. In the zero-variation, zero-noise
+    ``DISCRETE_LIMIT`` the tier reproduces the port's scan path bit for
+    bit. The thermal noise of bucket b is seeded ``seed + 7919 * b``.
+    Energies are recomputed on the host in float64 from the returned spins
+    against the NOMINAL couplings: the imperfect chip is scored on the
+    ideal problem.
+    """
+
+    def __init__(self, variant: str = "perturbation", params=None,
+                 variation=None, n_chips: int = 1, chip_seed: int = 0,
+                 warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        from ..physics import DEFAULT_PHYSICS, VariationModel
+        if variant not in ("perturbation", "gd"):
+            raise ValueError(f"unknown ode-jax variant {variant!r}")
+        if n_chips < 1:
+            raise ValueError(f"n_chips must be >= 1, got {n_chips}")
+        self.variant = variant
+        self.params = params if params is not None else DEFAULT_PHYSICS
+        self.variation = (variation if variation is not None
+                          else VariationModel())
+        self.n_chips = n_chips
+        self.chip_seed = chip_seed
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..core.device_model import DeviceModel
+        from ..core.lfsr import lfsr_voltage_inits
+        from ..core.perturbation import DEFAULT_PERTURBATION, NOMINAL
+        from ..physics import fleet_anneal
+
+        suite = as_suite(suite)
+        _check_max_n(suite, self.caps, self.name, block)
+        dev = DeviceModel()
+        if budget is not None:
+            # budget scales the anneal length: the engine's mapping
+            dev = dataclasses.replace(dev, anneal_sweeps=dev.anneal_sweeps *
+                                      budget_factor(budget))
+        pert = DEFAULT_PERTURBATION
+        if self.variant == "gd":
+            dev = dataclasses.replace(dev, tau_leak_sweeps=float("inf"))
+            pert = NOMINAL
+        fleet = self.n_chips > 1 or not self.variation.is_zero
+
+        def run_bucket(bucket, b_idx):
+            P, n_pad, _ = bucket.J.shape
+            # the engine's exact v0 streams (IsingMachine.solve)
+            s0 = seed + 7919 * b_idx
+            v0 = np.stack([
+                lfsr_voltage_inits(n_pad, runs, seed=s0 + 7919 * p,
+                                   vdd=dev.vdd, swing=dev.init_swing)
+                for p in range(P)])
+            chips = None
+            if fleet:
+                chips = self.variation.sample(self.chip_seed + b_idx,
+                                              self.n_chips, n_pad)
+            key = s0 if self.params.noise_sigma > 0 else None
+            res = fleet_anneal(bucket.J, v0, dev, pert, params=self.params,
+                               chips=chips, key=key,
+                               torch_device=self.torch_device)
+            # (C, P, R, N) -> (P, C*R, N), chip-major rows per problem
+            sig = res.sigma.to(torch.int8).cpu().numpy()
+            C = sig.shape[0]
+            sig = np.moveaxis(sig, 0, 1).reshape(P, C * runs, n_pad)
+            # float64 energy validation against the nominal couplings
+            s64 = sig.astype(np.float64)
+            J64 = np.asarray(bucket.J, dtype=np.float64)
+            e = -0.5 * np.einsum("pri,pij,prj->pr", s64, J64, s64)
+            return e, sig
+
+        return _bucketed_report(
+            suite, self.name, runs * self.n_chips, block, run_bucket,
+            meta={"variant": self.variant, "n_chips": self.n_chips,
+                  "chip_seed": self.chip_seed,
+                  "physics": dataclasses.asdict(self.params),
+                  "variation": dataclasses.asdict(self.variation),
+                  "torch_device": str(self.torch_device)},
+            warmup=self.warmup)
 
 
 @register_solver("brute-force", needs_oracle=False, exact=True,

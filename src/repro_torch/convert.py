@@ -6,8 +6,8 @@ has both packages passes ``dataclasses.asdict`` of a reference
 reference ``Problem``'s arrays. A carried problem has the same
 ``content_hash``, so it keys the same oracle-cache entry. The reference's
 ``jax.random`` draws (SB initial states; the SA, PT and tabu searches'
-initial spins, spin orders, uniforms and kick indices) cross as numpy
-arrays too.
+initial spins, spin orders, uniforms and kick indices) and the physics
+tier's chip-variation draws cross as numpy arrays too.
 """
 from __future__ import annotations
 
@@ -83,6 +83,29 @@ def sb_inits_from_arrays(x0, y0, torch_device: str | torch.device = "cuda"):
         raise ValueError(f"need x0 and y0 of one (P, R, N) shape, got "
                          f"{tuple(x0.shape)} and {tuple(y0.shape)}")
     return x0, y0
+
+
+def chip_variation_from_arrays(j_gain, tau_scale, slot_offset, gain_scale):
+    """The reference's ``ChipVariation`` (numpy: j_gain (C, N, N), tau_scale
+    (C,), slot_offset (C,), gain_scale (C,)) as the port's, CPU tensors as
+    ``VariationModel.sample`` makes them; ``fleet_anneal`` moves them to
+    its device."""
+    from .physics.variation import ChipVariation
+    jg, tau, off, gain = (torch.as_tensor(np.array(a, dtype=dt))
+                          for a, dt in zip((j_gain, tau_scale, slot_offset,
+                                            gain_scale),
+                                           (np.float32, np.float32,
+                                            np.int32, np.float32)))
+    C = tau.shape[0]
+    if jg.dim() != 3 or jg.shape[0] != C or jg.shape[1] != jg.shape[2] or \
+            tuple(off.shape) != (C,) or tuple(gain.shape) != (C,) or \
+            tau.dim() != 1:
+        raise ValueError(f"need j_gain (C, N, N) and tau_scale, slot_offset, "
+                         f"gain_scale (C,), got {tuple(jg.shape)}, "
+                         f"{tuple(tau.shape)}, {tuple(off.shape)}, "
+                         f"{tuple(gain.shape)}")
+    return ChipVariation(j_gain=jg, tau_scale=tau, slot_offset=off,
+                         gain_scale=gain)
 
 
 def _draw_tensors(arrays, dtypes, dev):

@@ -22,12 +22,16 @@ from typing import Optional
 
 import torch
 
+from .. import rng
 from .binarize import sign_pm1
 from .device_model import DeviceModel
 from .hamiltonian import ising_energy
 from .perturbation import PerturbationConfig, schedule_table
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: rng stream of the noise path's per-step normals
+NOISE_STREAM = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,15 +53,17 @@ def _compute_dtype(dev: DeviceModel) -> torch.dtype:
 
 def anneal(J: torch.Tensor, v0: torch.Tensor, dev: DeviceModel,
            pert: PerturbationConfig,
-           generator: Optional[torch.Generator] = None,
+           noise_seed: Optional[int] = None,
            record_every: int = 0,
            noise: Optional[torch.Tensor] = None) -> AnnealResult:
     """Run the full anneal on ``J``'s device. ``J`` must already be
     quantized to DAC levels; refresh/perturbation act through the column
     scales.
 
-    generator: enables the Gaussian "inherent perturbation" noise path
-        (dev.noise_sigma > 0); one ``randn`` of v's shape per step.
+    noise_seed: enables the Gaussian "inherent perturbation" noise path
+        (dev.noise_sigma > 0); step t's normals of v's shape come from the
+        counter-based ``rng``, key (noise_seed, ``NOISE_STREAM``) and
+        counter (t, flat index), made on J's device.
     noise: (T, P, R, N) standard normals to use instead of drawing them —
         lets a test feed the reference's exact per-step draws.
     record_every: if > 0, record the Hamiltonian every k steps (Fig. 4 left).
@@ -74,8 +80,11 @@ def anneal(J: torch.Tensor, v0: torch.Tensor, dev: DeviceModel,
     Jt = J.to(cdt).to(torch.float32).transpose(-1, -2).contiguous()
     scales = schedule_table(dev, pert, n_cols=N, device=J.device) \
         * (dev.drive_eff * dev.dt)
-    use_noise = dev.noise_sigma > 0 and (generator is not None or
+    use_noise = dev.noise_sigma > 0 and (noise_seed is not None or
                                          noise is not None)
+    if use_noise and noise is None:
+        noise_key = rng.key(noise_seed, NOISE_STREAM)
+        noise_idx = rng.counters(tuple(v.shape), v.device)
     if noise is not None and tuple(noise.shape) != (T,) + tuple(v.shape):
         raise ValueError(f"noise must be (T, P, R, N) = {(T,) + tuple(v.shape)}"
                          f", got {tuple(noise.shape)}")
@@ -86,9 +95,8 @@ def anneal(J: torch.Tensor, v0: torch.Tensor, dev: DeviceModel,
         sq = (q8.to(torch.float32) * scales[t]).to(cdt).to(torch.float32)
         dv = torch.matmul(sq, Jt)
         if use_noise:
-            z = noise[t].to(J.device) if noise is not None else torch.randn(
-                v.shape, generator=generator, device=v.device,
-                dtype=torch.float32)
+            z = noise[t].to(J.device) if noise is not None else rng.normal(
+                *rng.bits(noise_key, t, noise_idx))
             dv = dv + noise_scale * z
         v = torch.clamp(v + dv, 0.0, dev.vdd)
         if record_every and t % record_every == 0:
@@ -100,9 +108,9 @@ def anneal(J: torch.Tensor, v0: torch.Tensor, dev: DeviceModel,
                         energy_traj=traj)
 
 
-def anneal_energy_trace(J, v0, dev, pert, record_every=4, generator=None):
+def anneal_energy_trace(J, v0, dev, pert, record_every=4, noise_seed=None):
     """Convenience: (P, R, T_rec) Hamiltonian trajectory for Fig. 4-style
     plots."""
-    res = anneal(J, v0, dev, pert, generator=generator,
+    res = anneal(J, v0, dev, pert, noise_seed=noise_seed,
                  record_every=record_every)
     return res.energy_traj

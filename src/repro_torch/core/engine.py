@@ -196,10 +196,10 @@ class AnnealEngine:
         return EnginePlan(best_path, best_br, j_dtype, reason="autotuned")
 
     # -- execution ---------------------------------------------------------
-    def run(self, J, v0, generator: Optional[torch.Generator] = None,
+    def run(self, J, v0, noise_seed: Optional[int] = None,
             record_every: int = 0) -> AnnealResult:
         """Anneal quantized couplings J (P,N,N) from voltages v0 (P,R,N) on
-        the engine's torch device. ``generator`` enables the noise path."""
+        the engine's torch device. ``noise_seed`` enables the noise path."""
         J = torch.as_tensor(J, device=self.torch_device).to(torch.float32)
         v0 = torch.as_tensor(v0, device=self.torch_device).to(torch.float32)
         P, N, _ = J.shape
@@ -208,7 +208,7 @@ class AnnealEngine:
         if N != dev.n_spins:
             dev = dataclasses.replace(dev, n_spins=N)
         needs_scan = bool(record_every) or (
-            generator is not None and dev.noise_sigma > 0)
+            noise_seed is not None and dev.noise_sigma > 0)
         run_j_dtype = self._auto_j_dtype(J)
         if self.autotune_enabled and not needs_scan and \
                 self.path != "scan" and \
@@ -217,7 +217,7 @@ class AnnealEngine:
         plan = self.plan(P, R, N, J=J, needs_scan=needs_scan)
 
         if plan.path == "scan":
-            return anneal(J, v0, dev, self.perturbation, generator=generator,
+            return anneal(J, v0, dev, self.perturbation, noise_seed=noise_seed,
                           record_every=record_every)
 
         from ..kernels import ops as kops

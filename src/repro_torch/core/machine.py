@@ -81,14 +81,15 @@ class IsingMachine:
     # ------------------------------------------------------------------
     def solve(self, J, num_runs: int = 100, seed: int = 0,
               record_every: int = 0,
-              generator: Optional[torch.Generator] = None,
+              noise_seed: Optional[int] = None,
               quantize: bool = True) -> SolveOutput:
         """Anneal ``num_runs`` LFSR-seeded runs per problem.
 
         J: (N, N) or (P, N, N) couplings (symmetric, zero diag).
         quantize: apply the 31-level DAC model (identity for integer J in
             [-15, 15], the paper's problem distribution).
-        generator: enables the noise path (dev.noise_sigma > 0).
+        noise_seed: enables the noise path (dev.noise_sigma > 0): the
+            seed of its counter-based per-step normals.
         """
         J = torch.as_tensor(J, dtype=torch.float32, device=self.torch_device)
         if J.dim() == 2:
@@ -105,7 +106,7 @@ class IsingMachine:
             for p in range(P)
         ])  # (P, R, N)
         res = self.engine.run(Jq, torch.as_tensor(v0, device=self.torch_device),
-                              generator=generator, record_every=record_every)
+                              noise_seed=noise_seed, record_every=record_every)
         return SolveOutput(sigma=_numpy(res.sigma), energy=_numpy(res.energy),
                            v_final=_numpy(res.v_final),
                            energy_traj=_numpy(res.energy_traj))

@@ -53,9 +53,19 @@ DEFAULT_PERTURBATION = PerturbationConfig()
 
 def scales_from_cols(step, col_ids: torch.Tensor, dev: DeviceModel,
                      pert: PerturbationConfig,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     dtype: torch.dtype = torch.float32, *,
+                     tau_leak_sweeps=None, slot_offset=None) -> torch.Tensor:
     """Closed-form column scales; ``step`` (int or integer tensor) broadcasts
-    against the integer tensor ``col_ids``.
+    against the integer tensor ``col_ids`` and the per-chip overrides:
+
+    tau_leak_sweeps: a tensor in place of ``dev.tau_leak_sweeps`` (the
+        physics tier's per-chip leakage spread); nonpositive entries mean
+        no decay.
+    slot_offset: an integer tensor, the refresh pointer's phase offset in
+        column slots (per-chip refresh jitter).
+
+    With both ``None`` the op sequence is the one below without them, so
+    the scan path and the kernel's plain version are unchanged.
 
     The float32 op sequence is the reference's, op for op: ``age = step /
     substeps - last_sel``, ``decay = exp(-age / (C * tau))``, then
@@ -68,6 +78,9 @@ def scales_from_cols(step, col_ids: torch.Tensor, dev: DeviceModel,
     step = torch.as_tensor(step, dtype=torch.int64, device=device)
     col_ids = col_ids.to(torch.int64)
     slot = torch.div(step, dev.substeps, rounding_mode="floor")
+    if slot_offset is not None:
+        offset = torch.as_tensor(slot_offset, device=device).to(torch.int64)
+        slot = slot + offset
 
     j = col_ids % C                                 # column phase within tile
     d = (slot - j) % C                              # slots since last selection
@@ -76,7 +89,16 @@ def scales_from_cols(step, col_ids: torch.Tensor, dev: DeviceModel,
     last_sel = torch.where(pre, j - C, last_sel)    # column j at slot j - C
 
     age = step.to(dtype) / dev.substeps - last_sel.to(dtype)
-    if dev.has_leakage:
+    if slot_offset is not None:
+        # last_sel lives in the offset slot clock: give the step clock the
+        # same offset, so the age stays in [0, C]
+        age = age + offset.to(dtype)
+    if tau_leak_sweeps is not None:
+        tau = torch.as_tensor(tau_leak_sweeps, device=device).to(dtype)
+        one = torch.ones((), dtype=dtype, device=device)
+        safe = torch.where(tau > 0, tau, one)
+        decay = torch.where(tau > 0, torch.exp(-age / (C * safe)), one)
+    elif dev.has_leakage:
         denom = torch.tensor(C * dev.tau_leak_sweeps, dtype=dtype,
                              device=device)
         decay = torch.exp(-age / denom)

@@ -26,6 +26,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
+#: what a C entry point returns when it refuses a launch plan (a plan that
+#: does not fit the shape, or that the card cannot schedule); any other
+#: nonzero return is the CUDA runtime's error from the launch itself
+REFUSED = -1
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel's launch failed on the card (the CUDA runtime
+    returned an error). A refused plan raises ``ValueError`` instead: that
+    is a programming error, never worth a retry."""
+
+
+def check_launch(err: int, kernel: str, plan) -> None:
+    """Raise for a C entry point's nonzero return: ``ValueError`` for a
+    refused plan, ``KernelLaunchError`` for a failed launch."""
+    if err == REFUSED:
+        raise ValueError(f"{kernel} refused the launch plan {plan}")
+    if err != 0:
+        raise KernelLaunchError(f"{kernel} failed to launch {plan}: "
+                                f"cudaError {err}")
+
 
 def find_nvcc() -> str:
     candidates = []

@@ -652,12 +652,14 @@ cudaError_t run_mma(int regime, dim3 grid, int threads, int smem,
              N, n_pad, block_r, sc);
 }
 
+// What the entry point returns for a refused plan (build.REFUSED).
+constexpr int kRefused = -1;
+
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Returns a cudaError_t code (0 on
-// success): cudaErrorInvalidValue for a plan that does not match the shape
-// or that the kernel cannot run, else the launch's own error, checked right
-// after it. j_dtype: 0 f32, 1 bf16, 2 int8; regime: 0 registers, 1 shared,
+// Plain C entry point, loaded with ctypes. Returns 0 on success, kRefused
+// (-1) for a plan that does not match the shape or that the kernel cannot
+// run, else the launch's own cudaError_t, checked right after it. j_dtype: 0 f32, 1 bf16, 2 int8; regime: 0 registers, 1 shared,
 // 2 streamed. Jl is J as layout_j lays it out for the plan.
 extern "C" int ising_anneal(const void* Jl, const void* v0, void* out, int P,
                             int R, int N, int j_dtype, int regime, int n_pad,
@@ -671,19 +673,19 @@ extern "C" int ising_anneal(const void* Jl, const void* v0, void* out, int P,
   if (P <= 0 || R <= 0 || N <= 0 || N > kMaxN || cols <= 0 ||
       substeps <= 0 || (pert_enabled && period_slots <= 0) || j_dtype < kF32 ||
       j_dtype > kI8)
-    return (int)cudaErrorInvalidValue;
+    return kRefused;
   Geometry geo;
   if (!plan_geometry(j_dtype, regime, N, spins_per_warp, tiles_per_block,
                      &geo) ||
       geo.n_pad != n_pad || geo.j_rows != j_rows ||
       geo.warps_per_tile != warps_per_tile || geo.smem != smem_bytes)
-    return (int)cudaErrorInvalidValue;
+    return kRefused;
   const int threads = 32 * tiles_per_block * warps_per_tile;
-  if (threads > geo.max_threads) return (int)cudaErrorInvalidValue;
+  if (threads > geo.max_threads) return kRefused;
   const int block_r =
       tiles_per_block * (j_dtype == kF32 ? kF32Runs : kMmaRuns);
   const long long blocks = (long long)P * ((R + block_r - 1) / block_r);
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks > INT_MAX) return kRefused;
   Schedule sc{n_steps, substeps, cols, pert_enabled, period_slots, off_slots,
               settle_start, has_leak, c_tau, drive_dt, vdd, thr};
   const float* v = static_cast<const float*>(v0);

@@ -21,8 +21,11 @@
 //
 // Design: thread-block clusters along the spins. The launch geometry is
 // chosen in Python (sb_launch_plan in kernels/sb_kernel.py) and checked
-// here; a plan this file cannot run returns cudaErrorInvalidValue, a
-// cluster that cannot be co-scheduled cudaErrorInvalidConfiguration.
+// here; a plan this file cannot run, or a cluster that cannot be
+// co-scheduled, is refused (kRefused). sb_launch_plan takes only
+// geometries whose capacity on this card (sb_cluster_capacity) is nonzero,
+// so a cluster that cannot be co-scheduled marks a plan not made for this
+// card: it is refused the same way on every call, never worth a retry.
 //   * grid (C, ceil(R / block_r), P), cluster (C, 1, 1). A cluster owns
 //     block_r runs of one problem and integrates them in passes of RC runs
 //     (RC a multiple of 4, at most 64). CTA c of the cluster owns spins
@@ -500,6 +503,9 @@ cudaError_t prepare(Launch* l, int regime, int cluster, dim3 grid,
   return cudaOccupancyMaxActiveClusters(active, (void*)l->kernel, &l->cfg);
 }
 
+// What sb_integrate returns for a refused plan (build.REFUSED).
+constexpr int kRefused = -1;
+
 }  // namespace
 
 // Clusters of `cluster` CTAs of the regime's kernel, with `threads`
@@ -527,11 +533,10 @@ extern "C" int sb_cluster_capacity(int regime, int cluster, int threads,
 // or j >= N; rows is N (resident) or ceil(N / tile_j) * tile_j (cluster).
 // x0, y0, out are contiguous (P, R, N) float32. variant: 0 aSB, 1 bSB,
 // 2 dSB. The plan's fields are those of kernels/sb_kernel.py's
-// SBLaunchPlan, in its order. Returns a cudaError_t code (0 on success):
-// cudaErrorInvalidValue for arguments or a plan this kernel cannot run,
-// cudaErrorInvalidConfiguration when no cluster of the plan fits on the
-// card (checked at every launch), else the launch's own error, checked
-// right after it.
+// SBLaunchPlan, in its order. Returns 0 on success, kRefused (-1) for
+// arguments or a plan this kernel cannot run and when no cluster of the
+// plan fits on the card (checked at every launch), else the cudaError_t of
+// the launch's set-up or of the launch itself, checked right after it.
 extern "C" int sb_integrate(const void* JT, const void* x0, const void* y0,
                             void* out, int P, int R, int N, int rows,
                             int variant, int n_steps, float c_xy, float dt,
@@ -543,10 +548,10 @@ extern "C" int sb_integrate(const void* JT, const void* x0, const void* y0,
                 threads, smem};
   if (P <= 0 || R <= 0 || N <= 0 || n_steps < 0 || variant < kASB ||
       variant > kDSB || !plan_ok(pl, P, R, N))
-    return (int)cudaErrorInvalidValue;
+    return kRefused;
   const int want_rows =
       regime == kResident ? N : (N + tile_j - 1) / tile_j * tile_j;
-  if (rows != want_rows) return (int)cudaErrorInvalidValue;
+  if (rows != want_rows) return kRefused;
 
   const Params prm{R, N, rows, n_steps, variant, c_xy, dt, a0, inv_steps, pl};
   Launch l;
@@ -555,7 +560,7 @@ extern "C" int sb_integrate(const void* JT, const void* x0, const void* y0,
       &l, regime, cluster, dim3(cluster, (R + block_r - 1) / block_r, P),
       threads, smem, static_cast<cudaStream_t>(stream), &active);
   if (err != cudaSuccess) return (int)err;
-  if (active == 0) return (int)cudaErrorInvalidConfiguration;
+  if (active == 0) return kRefused;
   err = cudaLaunchKernelEx(&l.cfg, l.kernel, static_cast<const float*>(JT),
                            static_cast<const float*>(x0),
                            static_cast<const float*>(y0),

@@ -38,6 +38,7 @@ import dataclasses
 import torch
 
 from ..core.binarize import sign_pm1
+from .build import check_launch
 from ..core.device_model import DeviceModel
 from ..core.perturbation import (PerturbationConfig, scales_from_cols,
                                  unit_scales)
@@ -453,8 +454,6 @@ def fused_anneal_kernel(J: torch.Tensor, v0: torch.Tensor, *,
         C * dev.tau_leak_sweeps if dev.has_leakage else 1.0,
         float(dev.drive_eff * dev.dt), float(dev.vdd), float(dev.threshold),
         torch.cuda.current_stream(J.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ising_anneal refused or failed to launch {plan}: "
-                           f"cudaError {err}")
+    check_launch(err, "ising_anneal", plan)
     launches[KERNEL_NAMES[j_dtype]] += 1
     return out

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..core.binarize import sign_pm1
+from .build import check_launch
 
 SB_VARIANTS = ("aSB", "bSB", "dSB")
 #: runs per cluster. None: the plan takes the fewest runs per cluster (in
@@ -395,8 +396,6 @@ def fused_sb_kernel(Jc: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
         plan.runs_per_pass, plan.spins_per_cta, plan.tile_j, plan.stages,
         plan.threads, plan.smem_bytes,
         torch.cuda.current_stream(Jc.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sb_integrate refused or failed to launch {plan}: "
-                           f"cudaError {err}")
+    check_launch(err, "sb_integrate", plan)
     launches[KERNEL_NAMES[variant]] += 1
     return out

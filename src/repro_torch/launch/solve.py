@@ -18,6 +18,12 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --solver tabu-jax \
         --workload mis --spins 12 --runs 32
 
+    # the analog physics tier: a 256-chip virtual fleet with per-chip
+    # coupling mismatch and leakage spread, one batched call
+    PYTHONPATH=src python -m repro_torch.launch.solve --solver ode-jax \
+        --spins 64 --problems 2 --runs 8 --chips 256 \
+        --mismatch-sigma 0.1 --tau-leak-spread 0.3
+
     # the classical search tier at machine batch scale: tabu-jax (the
     # best-known oracle over restarts x problems), pt-jax (parallel
     # tempering), sa-jax; sa-numpy and tabu run on the host
@@ -31,8 +37,8 @@ it: the only sane setting at Gset scale) and refreshed by the batched
 tabu-jax tier above the brute-force range. Everything runs on
 ``--torch-device`` (default ``cuda``; without CUDA the CLI raises unless
 given ``--torch-device cpu``). Workloads: ``random-qubo``, ``maxcut``,
-``gset`` and the zoo; the ``--chips`` / ``--mesh-devices`` / variation
-options of the reference are not ported yet and raise.
+``gset`` and the zoo; the reference's ``--mesh-devices`` (the fabric) is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ from ..api import ProblemSuite, get_solver, list_solvers, solve_suite
 
 #: the reference's solvers and options that the port does not have yet, by
 #: the ROADMAP queue-1 step that ports them
-_NOT_YET_PORTED = {"ode-jax": 11, "fabric-jax": 13}
+_NOT_YET_PORTED = {"fabric-jax": 3}
 
 #: --workload values that are plain Problem constructors, not zoo entries.
 _BUILTIN = ("random-qubo", "maxcut", "gset")
@@ -92,14 +98,16 @@ def solve(n_spins: int, density: float, problems: int, runs: int,
           workload: str = "random-qubo", oracle: bool = True,
           degree: float | None = None,
           torch_device: str | torch.device = "cuda",
-          chips: int = 1, mesh_devices: int | None = None):
+          chips: int = 1, mismatch_sigma: float = 0.0,
+          tau_leak_spread: float = 0.0, mesh_devices: int | None = None):
     """Solve one workload cell through the registry; returns
     ``(report, suite)`` — the oracle-attached
-    :class:`repro_torch.api.SolveReport` plus the suite it solved."""
-    if chips != 1:
-        raise _not_yet_ported("--chips (the ode-jax virtual-chip fleet)", 11)
+    :class:`repro_torch.api.SolveReport` plus the suite it solved.
+    ``chips`` / ``mismatch_sigma`` / ``tau_leak_spread`` size the ode-jax
+    virtual-chip fleet."""
     if mesh_devices is not None:
-        raise _not_yet_ported("--mesh-devices (the fabric-jax mesh)", 13)
+        raise _not_yet_ported("--mesh-devices (the fabric-jax mesh)",
+                              _NOT_YET_PORTED["fabric-jax"])
     if solver in _NOT_YET_PORTED:
         raise _not_yet_ported(f"solver {solver!r}", _NOT_YET_PORTED[solver])
     suite = build_suite(workload, n_spins, density, problems, seed,
@@ -110,6 +118,13 @@ def solve(n_spins: int, density: float, problems: int, runs: int,
                     variant="perturbation" if perturbation else "gd")
     elif solver == "chip-lns":
         opts = dict(backend=backend)
+    elif solver == "ode-jax":
+        from ..physics import VariationModel
+        opts = dict(variant="perturbation" if perturbation else "gd",
+                    n_chips=chips,
+                    variation=VariationModel(
+                        j_mismatch_sigma=mismatch_sigma,
+                        tau_leak_spread=tau_leak_spread))
     return solve_suite(suite, solver=solver, runs=runs, seed=seed + 1,
                        budget=budget, use_cache=use_cache, oracle=oracle,
                        torch_device=torch_device, **opts), suite
@@ -180,7 +195,8 @@ def main(argv=None):
                     help="torch device to run on (default cuda; pass cpu "
                          "to run the plain versions on the host)")
     ap.add_argument("--no-perturbation", action="store_true",
-                    help="[engine] gradient-descent baseline variant")
+                    help="[engine/ode-jax] gradient-descent baseline "
+                         "variant")
     ap.add_argument("--autotune", action="store_true",
                     help="[engine] time block_r candidates for this "
                          "workload and persist the winner")
@@ -190,7 +206,16 @@ def main(argv=None):
                     help="skip the best-known oracle entirely (success "
                          "metrics unavailable)")
     ap.add_argument("--chips", type=int, default=1,
-                    help="[ode-jax] not yet ported")
+                    help="[ode-jax] virtual-chip fleet size: every chip "
+                         "anneals every problem with its own variation "
+                         "draws; chips x runs ride ONE batched call per "
+                         "pad bucket")
+    ap.add_argument("--mismatch-sigma", type=float, default=0.0,
+                    help="[ode-jax] per-cell multiplicative coupling "
+                         "mismatch sigma (J_eff = J * (1 + sigma*z))")
+    ap.add_argument("--tau-leak-spread", type=float, default=0.0,
+                    help="[ode-jax] lognormal spread of the gate-leak "
+                         "time constant across chips")
     ap.add_argument("--mesh-devices", type=int, default=None,
                     help="[fabric-jax] not yet ported")
     args = ap.parse_args(argv)
@@ -211,7 +236,9 @@ def main(argv=None):
         budget=args.budget, use_cache=not args.no_cache,
         workload=args.workload, oracle=not args.no_oracle,
         degree=args.degree, torch_device=args.torch_device,
-        chips=args.chips, mesh_devices=args.mesh_devices)
+        chips=args.chips, mismatch_sigma=args.mismatch_sigma,
+        tau_leak_spread=args.tau_leak_spread,
+        mesh_devices=args.mesh_devices)
     plan = report.meta.get("engine_plan")
     if plan:
         print(f"[engine] path={plan['path']} block_r={plan['block_r']} "

@@ -16,17 +16,20 @@ Built on ``solvers.sa_jax.metropolis_sweep``:
     branch-free, as a gather permutation;
   * a restart reports the best energy any of its rungs has seen.
 
-Draws come from ``pt_draws`` (one ``torch.Generator`` a problem) or are
-injected (``convert.pt_draws_from_arrays``). As for SA, the two packages can
+Draws come from the counter-based ``rng`` a sweep at a time (the sweep's
+orders and uniforms over (P, R, K, n), its swap uniforms over (P, R, K)),
+or are sliced from an injected stream (``pt_draws``, or the reference's
+through ``convert.pt_draws_from_arrays``). As for SA, the two packages can
 part only where an accept or swap decision ties with its ``exp``.
 """
 from __future__ import annotations
 
 import torch
 
-from ..device import problem_generator, resolve_device
-from .sa_jax import (as_couplings, check_draws, metropolis_sweep,
-                     random_init_state, random_orders, random_spins)
+from .. import rng
+from ..device import resolve_device
+from .sa_jax import (SWAP_STREAM, SweepDraws, as_couplings, check_draws,
+                     metropolis_sweep, random_init_state, random_spins)
 
 
 def beta_ladder(n_rungs: int, beta0: float = 0.05, beta1: float = 4.0,
@@ -41,23 +44,36 @@ def beta_ladder(n_rungs: int, beta0: float = 0.05, beta1: float = 4.0,
 
 def pt_draws(P: int, R: int, K: int, n: int, T: int, seed: int = 0,
              torch_device: str | torch.device = "cuda"):
-    """Every random draw of a PT solve: ``(s0, order, u, swap_u)`` with
-    initial spins s0 (P, R, K, n) float32 ±1, spin orders (P, R, T, K, n)
-    int32, sweep uniforms u (P, R, T, K, n) and swap uniforms swap_u
-    (P, R, T, K), float32 in [0, 1). Problem p draws from its own
-    generator, seeded from (seed, p)."""
+    """Every random draw of a PT solve, the whole stream at once: ``(s0,
+    order, u, swap_u)`` with initial spins s0 (P, R, K, n) float32 ±1,
+    spin orders (P, R, T, K, n) int32, sweep uniforms u (P, R, T, K, n) and
+    swap uniforms swap_u (P, R, T, K), float32 in [0, 1). The solve draws
+    the same values a sweep at a time (``PTDraws``)."""
     dev = resolve_device(torch_device)
-    s0 = torch.empty((P, R, K, n), dtype=torch.float32, device=dev)
-    order = torch.empty((P, R, T, K, n), dtype=torch.int32, device=dev)
-    u = torch.empty((P, R, T, K, n), dtype=torch.float32, device=dev)
-    swap_u = torch.empty((P, R, T, K), dtype=torch.float32, device=dev)
-    for p in range(P):
-        gen = problem_generator(seed, p, dev)
-        s0[p] = random_spins((R, K, n), gen, dev)
-        order[p] = random_orders((R, T, K, n), gen, dev)
-        u[p].uniform_(generator=gen)
-        swap_u[p].uniform_(generator=gen)
-    return s0, order, u, swap_u
+    src = PTDraws(seed, P, R, K, n, dev)
+    draws = [src(t) for t in range(T)]
+    order, u, swap_u = (torch.stack([d[i] for d in draws], dim=2)
+                        for i in range(3))
+    return random_spins(seed, P, (R, K, n), dev), order.to(torch.int32), \
+        u, swap_u
+
+
+class PTDraws:
+    """One PT sweep's draws at a time: ``draws(t)`` gives the orders
+    (P, R, K, n) int64, the sweep uniforms (P, R, K, n) and the swap
+    uniforms (P, R, K) of sweep ``t``; problem p's come from the keys
+    (seed, p, stream), the counter is (t, flat index)."""
+
+    def __init__(self, seed: int, P: int, R: int, K: int, n: int,
+                 dev: torch.device):
+        self.sweep = SweepDraws(seed, P, (R, K, n), dev)
+        self.k = rng.keys(seed, range(P), SWAP_STREAM, device=dev, ndim=3)
+        self.idx = rng.counters((1, R, K), dev)
+
+    def __call__(self, t: int):
+        order, u = self.sweep(t)
+        w, _ = rng.bits(self.k, t, self.idx)
+        return order, u, rng.uniform(w)
 
 
 def _swap_perm(E, dbeta, is_left, u):
@@ -87,7 +103,7 @@ def parallel_tempering_jax_runs(J, n_runs: int = 16, n_sweeps: int = 100,
 
     J: (P, n, n) or (n, n) level-space couplings (zero-padded buckets are
     fine, as for SA). ``draws``: ``(s0, order, u, swap_u)`` as ``pt_draws``
-    makes them, else drawn from ``seed``. Returns ``(energies (P, R)
+    makes them, else drawn from ``seed`` a sweep at a time. Returns ``(energies (P, R)
     float64, sigma (P, R, n) int8, swaps (P, R) int64)`` as numpy arrays;
     swaps counts accepted replica exchanges per restart (0 everywhere means
     the ladder is too steep to exchange).
@@ -98,12 +114,17 @@ def parallel_tempering_jax_runs(J, n_runs: int = 16, n_sweeps: int = 100,
     R, K, T = int(n_runs), int(n_rungs), int(n_sweeps)
     B = R * K
     if draws is None:
-        draws = pt_draws(P, R, K, n, T, seed, dev)
-    s0, order, u, swap_u = check_draws(draws, {
-        "s0": ((P, R, K, n), torch.float32),
-        "order": ((P, R, T, K, n), torch.int32),
-        "u": ((P, R, T, K, n), torch.float32),
-        "swap_u": ((P, R, T, K), torch.float32)}, dev)
+        s0 = random_spins(seed, P, (R, K, n), dev)
+        sweep = PTDraws(seed, P, R, K, n, dev)
+    else:
+        s0, order, u, swap_u = check_draws(draws, {
+            "s0": ((P, R, K, n), torch.float32),
+            "order": ((P, R, T, K, n), torch.int32),
+            "u": ((P, R, T, K, n), torch.float32),
+            "swap_u": ((P, R, T, K), torch.float32)}, dev)
+
+        def sweep(t):
+            return order[:, :, t].long(), u[:, :, t], swap_u[:, :, t]
     Jt = J.transpose(1, 2).contiguous()
     betas = beta_ladder(K, beta0, beta1, dev)
     neg_beta = (-betas).repeat(R).view(1, B, 1)          # walker r*K + k
@@ -119,13 +140,13 @@ def parallel_tempering_jax_runs(J, n_runs: int = 16, n_sweeps: int = 100,
         2, m[..., None].expand(P, R, 1, n))[:, :, 0]
     swaps = torch.zeros((P, R), dtype=torch.int64, device=dev)
     for t in range(T):
-        metropolis_sweep(Jt, s, f, e, neg_beta,
-                         order[:, :, t].reshape(P, B, n).long(),
-                         u[:, :, t].reshape(P, B, n))
+        order_t, u_t, swap_u_t = sweep(t)
+        metropolis_sweep(Jt, s, f, e, neg_beta, order_t.reshape(P, B, n),
+                         u_t.reshape(P, B, n))
         if (t + 1) % swap_every == 0:
             perm, swapped = _swap_perm(e.view(P, R, K), dbeta,
                                        is_left[(t // swap_every) % 2],
-                                       swap_u[:, :, t])
+                                       swap_u_t)
             idx = perm[..., None].expand(P, R, K, n)
             s = s.view(P, R, K, n).gather(2, idx).view(P, B, n)
             f = f.view(P, R, K, n).gather(2, idx).view(P, B, n)

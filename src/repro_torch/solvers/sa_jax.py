@@ -13,10 +13,14 @@ incremental local-field updates.
   * The best state is kept once a sweep, as the reference keeps it.
 
 Every random draw (the initial spins; per sweep the spin order and the
-uniforms) comes from ``sa_draws``: one ``torch.Generator`` a problem,
-seeded from (seed, p). ``simulated_annealing_jax_runs`` also takes the
-draws as an argument, so the reference's ``jax.random`` draws can be
-injected (``convert.sa_draws_from_arrays``). Fields and energies are sums
+uniforms) comes from the counter-based generator ``rng``, keyed by (seed,
+problem, stream) and counted by (sweep, restart, spin), so a seeded solve
+gives the same draws on every device. The loop makes one sweep's draws at
+a time (``SweepDraws``): its draw state is (P, R, n), not (P, R, T, n).
+``sa_draws`` materialises the whole stream, and
+``simulated_annealing_jax_runs`` also takes such a stream as an argument,
+so the reference's ``jax.random`` draws can be injected
+(``convert.sa_draws_from_arrays``). Fields and energies are sums
 of integer levels times ±1, exact in float32. An accept decision compares
 ``u`` with an ``exp``, whose last bit may differ from XLA's, so the two
 packages can part only where ``u`` ties with it.
@@ -29,7 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import problem_generator, resolve_device
+from .. import rng
+from ..device import resolve_device
+
+#: rng streams of the search tier's draws
+INIT_STREAM, SWEEP_STREAM, SWAP_STREAM, KICK_STREAM = 1, 2, 3, 4
 
 
 def as_couplings(J, dev: torch.device) -> torch.Tensor:
@@ -49,17 +57,30 @@ def random_init_state(Jt: torch.Tensor, s0: torch.Tensor):
     return s, f, e
 
 
-def random_spins(shape, gen: torch.Generator, dev: torch.device):
-    """Uniform ±1 float32 spins of ``shape`` from ``gen``."""
-    return torch.randint(0, 2, shape, generator=gen, device=dev,
-                         dtype=torch.int32).mul_(2).sub_(1).float()
+def random_spins(seed: int, P: int, shape: tuple, dev: torch.device):
+    """Uniform ±1 float32 initial spins (P,) + ``shape``: problem p's from
+    the key (seed, p, ``INIT_STREAM``), so they do not depend on the other
+    problems of the batch."""
+    k = rng.keys(seed, range(P), INIT_STREAM, device=dev,
+                 ndim=1 + len(shape))
+    w, _ = rng.bits(k, 0, rng.counters((1,) + tuple(shape), dev))
+    return rng.spins(w)
 
 
-def random_orders(shape, gen: torch.Generator, dev: torch.device):
-    """Uniform random permutations of the last axis of ``shape``, int32:
-    the argsort of uniforms."""
-    keys = torch.rand(shape, generator=gen, device=dev)
-    return keys.argsort(dim=-1).to(torch.int32)
+class SweepDraws:
+    """One sweep's spin orders and uniforms at a time: ``draws(t)`` gives
+    the orders (P,) + ``shape`` int64 (a permutation of the last axis) and
+    the uniforms of the same shape, float32 in [0, 1), of sweep ``t``, from
+    the key (seed, p, ``SWEEP_STREAM``) and the counter (t, flat index)."""
+
+    def __init__(self, seed: int, P: int, shape: tuple, dev: torch.device):
+        self.k = rng.keys(seed, range(P), SWEEP_STREAM, device=dev,
+                          ndim=1 + len(shape))
+        self.idx = rng.counters((1,) + tuple(shape), dev)
+
+    def __call__(self, t: int):
+        w0, w1 = rng.bits(self.k, t, self.idx)
+        return rng.permutation(w0), rng.uniform(w1)
 
 
 def sa_betas(n_sweeps: int, beta0: float = 0.05, beta1: float = 4.0,
@@ -75,20 +96,17 @@ def sa_betas(n_sweeps: int, beta0: float = 0.05, beta1: float = 4.0,
 
 def sa_draws(P: int, R: int, n: int, T: int, seed: int = 0,
              torch_device: str | torch.device = "cuda"):
-    """Every random draw of an SA solve: ``(s0, order, u)`` with initial
-    spins s0 (P, R, n) float32 ±1, spin orders (P, R, T, n) int32 (one
-    permutation a sweep) and uniforms u (P, R, T, n) float32 in [0, 1).
-    Problem p draws from its own generator, seeded from (seed, p)."""
+    """Every random draw of an SA solve, the whole stream at once: ``(s0,
+    order, u)`` with initial spins s0 (P, R, n) float32 ±1, spin orders
+    (P, R, T, n) int32 (one permutation a sweep) and uniforms u (P, R, T, n)
+    float32 in [0, 1). The solve itself draws the same values a sweep at a
+    time; this is for tests and for injecting a stream."""
     dev = resolve_device(torch_device)
-    s0 = torch.empty((P, R, n), dtype=torch.float32, device=dev)
-    order = torch.empty((P, R, T, n), dtype=torch.int32, device=dev)
-    u = torch.empty((P, R, T, n), dtype=torch.float32, device=dev)
-    for p in range(P):
-        gen = problem_generator(seed, p, dev)
-        s0[p] = random_spins((R, n), gen, dev)
-        order[p] = random_orders((R, T, n), gen, dev)
-        u[p].uniform_(generator=gen)
-    return s0, order, u
+    sweeps = SweepDraws(seed, P, (R, n), dev)
+    draws = [sweeps(t) for t in range(T)]
+    order = torch.stack([o for o, _ in draws], dim=2).to(torch.int32)
+    u = torch.stack([x for _, x in draws], dim=2)
+    return random_spins(seed, P, (R, n), dev), order, u
 
 
 def check_draws(draws, shapes: dict, dev: torch.device):
@@ -155,18 +173,22 @@ def simulated_annealing_jax_runs(J, n_runs: int = 16, n_sweeps: int = 200,
     P, n = J.shape[0], J.shape[-1]
     R, T = int(n_runs), int(n_sweeps)
     if draws is None:
-        draws = sa_draws(P, R, n, T, seed, dev)
-    s0, order, u = check_draws(draws, {
-        "s0": ((P, R, n), torch.float32),
-        "order": ((P, R, T, n), torch.int32),
-        "u": ((P, R, T, n), torch.float32)}, dev)
+        s0 = random_spins(seed, P, (R, n), dev)
+        sweep = SweepDraws(seed, P, (R, n), dev)
+    else:
+        s0, order, u = check_draws(draws, {
+            "s0": ((P, R, n), torch.float32),
+            "order": ((P, R, T, n), torch.int32),
+            "u": ((P, R, T, n), torch.float32)}, dev)
+
+        def sweep(t):
+            return order[:, :, t].long(), u[:, :, t]
     Jt = J.transpose(1, 2).contiguous()
     neg_betas = -sa_betas(T, beta0, beta1, dev)
     s, f, e = random_init_state(Jt, s0)
     best_e, best_s = e.clone(), s.clone()
     for t in range(T):
-        metropolis_sweep(Jt, s, f, e, neg_betas[t], order[:, :, t].long(),
-                         u[:, :, t])
+        metropolis_sweep(Jt, s, f, e, neg_betas[t], *sweep(t))
         better = e < best_e
         best_e = torch.where(better, e, best_e)
         best_s = torch.where(better, s, best_s)

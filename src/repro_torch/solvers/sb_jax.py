@@ -12,8 +12,9 @@ This module owns everything per-problem:
     (SNIPPETS.md Snippet 2), computed in float64 numpy from each problem's
     TRUE size, bitwise equal to the reference;
   * restart initialization: x0, y0 ~ U(-0.1, 0.1) per (problem, restart)
-    from a ``torch.Generator`` seeded per problem, masked to zero on padded
-    spins (a zero-state, zero-coupling pad is exactly inert and reads +1);
+    from the counter-based ``rng`` keyed per problem (the same values on
+    every device), masked to zero on padded spins (a zero-state,
+    zero-coupling pad is exactly inert and reads +1);
   * ``sign_pm1`` readout and float64 energies against the ORIGINAL
     unscaled J, computed on the torch device. They are exact: integer
     levels times ±1 spins sum to integers below 2^53.
@@ -24,12 +25,16 @@ import numpy as np
 import torch
 
 from ..core.binarize import sign_pm1
-from ..device import problem_generator, resolve_device
+from .. import rng
+from ..device import resolve_device
 from ..kernels.sb_kernel import check_variant, fused_sb_kernel
 
 #: init amplitude for positions/momenta (standard SB practice: start just
 #: off the unstable x=0 fixed point so restarts decorrelate).
 INIT_AMP = 0.1
+
+#: rng stream of the initial states
+_INIT_STREAM = 1
 
 
 def sb_coupling_scale(J, n_true=None):
@@ -70,18 +75,17 @@ def sb_inits(P, n_restarts, n, n_true=None, seed: int = 0,
     """x0, y0 ~ U(-INIT_AMP, INIT_AMP), (P, R, n) float32 on the torch
     device, padded spins zeroed.
 
-    Problem p draws from its own ``torch.Generator`` seeded from (seed, p),
-    so a problem's draws depend only on (seed, p, R, n) and the device's
-    generator — not on the other problems of the batch. The reference draws
+    Problem p's draws come from the key (seed, p) and the counter (0,
+    flat (restart, spin) index): they depend only on (seed, p, R, n), not
+    on the other problems of the batch or on the device (``u * 0.2 - 0.1``
+    in two float32 roundings from a 24-bit uniform). The reference draws
     from ``jax.random``: the two agree in distribution, not in value.
     """
     dev = resolve_device(torch_device)
-    x0 = torch.empty((P, n_restarts, n), dtype=torch.float32, device=dev)
-    y0 = torch.empty_like(x0)
-    for p in range(P):
-        gen = problem_generator(seed, p, dev)
-        x0[p].uniform_(-INIT_AMP, INIT_AMP, generator=gen)
-        y0[p].uniform_(-INIT_AMP, INIT_AMP, generator=gen)
+    k = rng.keys(seed, range(P), _INIT_STREAM, device=dev, ndim=3)
+    w0, w1 = rng.bits(k, 0, rng.counters((1, n_restarts, n), dev))
+    x0, y0 = (rng.uniform(w).mul_(2 * INIT_AMP).sub_(INIT_AMP)
+              for w in (w0, w1))
     if n_true is not None:
         valid = (torch.arange(n, device=dev)[None, None, :]
                  < torch.as_tensor(n_true, device=dev)[:, None, None])

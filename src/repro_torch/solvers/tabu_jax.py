@@ -20,8 +20,10 @@ reference's lockstep version:
     exactly the moves of the unpadded one.
 
 Draws (initial spins, and per iteration the kick index ``floor(u *
-n_true)``) come from ``tabu_draws`` or are injected
-(``convert.tabu_draws_from_arrays``). Every quantity is an integer exact in
+n_true)``) come from the counter-based ``rng``, n iterations' kicks at a
+time (``KickDraws``), or are sliced from an injected stream
+(``tabu_draws``, or the reference's through
+``convert.tabu_draws_from_arrays``). Every quantity is an integer exact in
 float32 or an index, so with the same draws the result is the reference's
 to the bit.
 """
@@ -30,8 +32,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import problem_generator, resolve_device
-from .sa_jax import as_couplings, check_draws, random_init_state, random_spins
+from .. import rng
+from ..device import resolve_device
+from .sa_jax import (KICK_STREAM, as_couplings, check_draws,
+                     random_init_state, random_spins)
 
 #: aspiration / improvement tolerance. Level-space energies are exact
 #: integers (integer J, ±1 spins), inside float32's 2^24 integer range, so
@@ -47,24 +51,36 @@ def _per_problem(value, default, P: int) -> np.ndarray:
     return np.broadcast_to(np.asarray(value, np.int64), (P,)).copy()
 
 
+class KickDraws:
+    """The kick indices of a run of iterations: ``draws(i0, i1)`` gives
+    (P, R, i1 - i0) int64, iteration i's kick of restart r of problem p in
+    [0, n_true[p]) from the key (seed, p, ``KICK_STREAM``) and the counter
+    (i, r)."""
+
+    def __init__(self, seed: int, P: int, R: int, n_true,
+                 dev: torch.device):
+        self.k = rng.keys(seed, range(P), KICK_STREAM, device=dev, ndim=3)
+        self.r = rng.counters((1, R, 1), dev)
+        self.n = torch.as_tensor(np.asarray(n_true, np.int64),
+                                 device=dev).view(P, 1, 1)
+
+    def __call__(self, i0: int, i1: int) -> torch.Tensor:
+        its = torch.arange(i0, i1, dtype=torch.int64,
+                           device=self.r.device).view(1, 1, -1)
+        w, _ = rng.bits(self.k, its, self.r)
+        return rng.index(w, self.n)
+
+
 def tabu_draws(P: int, R: int, n: int, max_iters: int, n_true=None,
                seed: int = 0, torch_device: str | torch.device = "cuda"):
-    """Every random draw of a tabu solve: ``(s0, kick)`` with initial spins
-    s0 (P, R, n) float32 ±1 and the kick index of every iteration, kick
-    (P, R, max_iters) int64 in [0, n_true[p]) (``floor(u * n_true)`` of a
-    float64 uniform). Problem p draws from its own generator, seeded from
-    (seed, p)."""
+    """Every random draw of a tabu solve, the whole stream at once: ``(s0,
+    kick)`` with initial spins s0 (P, R, n) float32 ±1 and the kick index
+    of every iteration, kick (P, R, max_iters) int64 in [0, n_true[p]).
+    The solve draws the same values n iterations at a time."""
     dev = resolve_device(torch_device)
     nt = _per_problem(n_true, np.full((P,), n), P)
-    s0 = torch.empty((P, R, n), dtype=torch.float32, device=dev)
-    kick = torch.empty((P, R, max_iters), dtype=torch.int64, device=dev)
-    for p in range(P):
-        gen = problem_generator(seed, p, dev)
-        s0[p] = random_spins((R, n), gen, dev)
-        u = torch.rand((R, max_iters), generator=gen, device=dev,
-                       dtype=torch.float64)
-        kick[p] = (u * int(nt[p])).long().clamp_(max=int(nt[p]) - 1)
-    return s0, kick
+    return (random_spins(seed, P, (R, n), dev),
+            KickDraws(seed, P, R, nt, dev)(0, max_iters))
 
 
 def tabu_search_jax_runs(J, n_true=None, n_iters=None, n_restarts: int = 8,
@@ -80,7 +96,8 @@ def tabu_search_jax_runs(J, n_true=None, n_iters=None, n_restarts: int = 8,
     ``patience = 8 * tenure``, ``kick_len = tenure``. The loop runs
     ``max(n_iters)`` lockstep iterations; a problem with a smaller budget
     stops flipping at its own. ``draws``: ``(s0, kick)`` as ``tabu_draws``
-    makes them, else drawn from ``seed``.
+    makes them, else drawn from ``seed``, the kicks of n iterations at a
+    time.
 
     Returns ``(energies (P, R) float64, sigma (P, R, n) int8, iters_used
     (P, R) int64)`` as numpy arrays. ``iters_used`` counts APPLIED flips,
@@ -97,10 +114,15 @@ def tabu_search_jax_runs(J, n_true=None, n_iters=None, n_restarts: int = 8,
     kl = _per_problem(kick_len, ten, P)
     max_iters = int(iters.max(initial=0))
     if draws is None:
-        draws = tabu_draws(P, R, n, max_iters, nt, seed, dev)
-    s0, kick = check_draws(draws, {
-        "s0": ((P, R, n), torch.float32),
-        "kick": ((P, R, max_iters), torch.int64)}, dev)
+        s0 = random_spins(seed, P, (R, n), dev)
+        kick_draws = KickDraws(seed, P, R, nt, dev)
+    else:
+        s0, kick = check_draws(draws, {
+            "s0": ((P, R, n), torch.float32),
+            "kick": ((P, R, max_iters), torch.int64)}, dev)
+
+        def kick_draws(i0, i1):
+            return kick[:, :, i0:i1]
 
     def col(x):                                  # (P,) -> (P, 1, 1) on dev
         return torch.as_tensor(x, device=dev).view(P, 1, 1)
@@ -121,6 +143,8 @@ def tabu_search_jax_runs(J, n_true=None, n_iters=None, n_restarts: int = 8,
     zero_i = torch.zeros((), dtype=torch.int64, device=dev)
 
     for it in range(max_iters):
+        if it % n == 0:                      # the next n iterations' kicks
+            kicks = kick_draws(it, min(it + n, max_iters))
         cand = torch.mul(s, f).mul_(2.0).add_(e)         # e + dH
         allowed = (tabu_until < it) | (cand < best_e - _EPS)
         allowed &= valid
@@ -129,7 +153,7 @@ def tabu_search_jax_runs(J, n_true=None, n_iters=None, n_restarts: int = 8,
         # the kick burst: after ``patience`` non-improving attempts,
         # ``kick_len`` random flips
         kicking = kick_on & (since >= patience_t)
-        k = torch.where(kicking, kick[:, :, it:it + 1], k_best)
+        k = torch.where(kicking, kicks[:, :, it % n:it % n + 1], k_best)
         budget_left = ~done & (it < n_iters_t)
         active = budget_left & (kicking | ~stall)
 

@@ -262,7 +262,7 @@ def test_noise_generator_is_seeded_and_shape_checked():
                                "noise_sigma": 2.0}, r_pert.NOMINAL)
     J, v0 = (torch.as_tensor(x) for x in _inputs(8, 1, 4, seed=2))
     runs = [t_annealer.anneal(J, v0, tdev, tpert,
-                              generator=torch.Generator().manual_seed(5))
+                              noise_seed=5)
             for _ in range(2)]
     assert torch.equal(runs[0].v_final, runs[1].v_final)
     with pytest.raises(ValueError, match="noise must be"):

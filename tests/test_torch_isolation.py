@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +26,9 @@ def test_import_loads_no_jax_and_no_reference_package():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.core, "
             "repro_torch.kernels, repro_torch.convert, repro_torch.problems, "
             "repro_torch.solvers, repro_torch.workloads, "
-            "repro_torch.launch.solve; "
+            "repro_torch.launch.solve, repro_torch.rng, repro_torch.physics, "
+            "repro_torch.serve, repro_torch.distributed.fault_tolerance, "
+            "repro_torch.distributed.elastic, repro_torch.launch.serve_ising; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -58,6 +61,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.solvers.sa_jax import sa_draws
     from repro_torch.solvers.sb_jax import simulated_bifurcation_jax_runs
     from repro_torch.solvers.tabu_jax import tabu_draws
+    from repro_torch.physics import fleet_anneal
+    from repro_torch.serve import (FlushExecutor, IsingFleet, IsingService,
+                                   ResiliencePolicy)
+    from repro_torch.core import DeviceModel
+    from repro_torch.core.perturbation import DEFAULT_PERTURBATION
     _no_cuda(monkeypatch)
     suite = ProblemSuite.random(n=8, density=0.5, num_problems=1, seed=0)
     J = suite[0].J_levels
@@ -87,7 +95,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: solve(8, 0.5, 1, 2, solver="sb-jax", oracle=False),
                  lambda: IsingMachine(),
                  lambda: AnnealEngine(),
-                 lambda: IsingMachine(torch_device="cuda:0")):
+                 lambda: IsingMachine(torch_device="cuda:0"),
+                 lambda: get_solver("ode-jax"),
+                 lambda: solve_suite(suite, solver="ode-jax", runs=2),
+                 lambda: fleet_anneal(J, np.zeros((1, 2, 8), np.float32),
+                                      DeviceModel(), DEFAULT_PERTURBATION),
+                 lambda: solve(8, 0.5, 1, 2, solver="ode-jax", chips=2,
+                               oracle=False),
+                 lambda: IsingService(solver="sa-numpy"),
+                 lambda: IsingFleet(solver="sa-numpy"),
+                 lambda: FlushExecutor(ResiliencePolicy(), primary=None,
+                                       solver_name="x", runs=1, seed=0,
+                                       block=16)):
         with pytest.raises(RuntimeError, match="torch_device='cpu'"):
             call()
     # asked for by name, the CPU works
@@ -117,6 +136,22 @@ def test_solve_cli_raises_without_cuda_unless_asked_for_the_cpu():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "[maxcut #0] N=12 cut weight=" in out.stdout
+
+
+def test_serve_cli_raises_without_cuda_unless_asked_for_the_cpu():
+    env = _env(CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_ising",
+           "--solver", "sa-numpy", "--sizes", "12", "--pool", "2",
+           "--clients", "1", "--runs", "2", "--duration", "1"]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "torch_device='cpu'" in out.stderr
+    out = subprocess.run(cmd + ["--torch-device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "-- final:" in out.stdout and "[sa-numpy]" in out.stdout
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -281,9 +281,21 @@ def test_cli_main_prints_plan_summary_and_cuts(capsys, tmp_path,
 
 
 @pytest.mark.parametrize("kwargs,step", [
-    ({"solver": "ode-jax"}, 11), ({"chips": 4}, 11),
-    ({"mesh_devices": 8}, 13), ({"solver": "fabric-jax"}, 13)])
+    ({"mesh_devices": 8}, 3), ({"solver": "fabric-jax"}, 3)])
 def test_cli_refuses_what_is_not_ported_yet(kwargs, step):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 step {step}"):
         cli.solve(12, 0.5, 1, 4, oracle=False, **{**CPU, **kwargs})
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"solver": "ode-jax"},
+    {"solver": "ode-jax", "chips": 3, "mismatch_sigma": 0.1,
+     "tau_leak_spread": 0.3}])
+def test_cli_runs_the_ode_fleet(kwargs):
+    rep, suite = cli.solve(12, 0.5, 1, 4, oracle=False, budget=0.1,
+                           **{**CPU, **kwargs})
+    chips = kwargs.get("chips", 1)
+    assert rep.solver == "ode-jax" and rep.dispatches == 1
+    assert rep.meta["n_chips"] == chips and rep.runs == 4 * chips
+    assert np.asarray(rep.energies[0]).shape == (4 * chips,)

@@ -281,9 +281,13 @@ def test_sb_determinism_same_seed_bit_identical():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(r1.best_sigma, r2.best_sigma):
         np.testing.assert_array_equal(a, b)
-    r3 = get_solver("sb-jax", **CPU).solve(suite, runs=8, seed=4)
+    # another seed gives another solve; at the default 400 steps every
+    # restart of this easy suite converges to the same energies whatever the
+    # seed, so the seeds are compared on a solve cut to 50 steps
+    s3 = get_solver("sb-jax", n_steps=50, **CPU).solve(suite, runs=8, seed=3)
+    s4 = get_solver("sb-jax", n_steps=50, **CPU).solve(suite, runs=8, seed=4)
     assert any(not np.array_equal(a, b)
-               for a, b in zip(r1.energies, r3.energies))
+               for a, b in zip(s3.energies, s4.energies))
 
 
 def test_sb_budget_scales_iters_not_restarts():
