@@ -46,8 +46,9 @@ exits nonzero:
                 settings, printed beside the reference's recorded cuts.
   9. timing   — each SB variant's kernel and plain version at the dense
                 and Gset shapes with the launch plan, its registers and
-                spills, and the bounds; the products-only yardstick and the
-                card's cluster capacity at the Gset shape; the kernel at
+                spills, the bounds and the products-only yardstick
+                (library_ms); the card's cluster capacity at the Gset
+                shape; the kernel at
                 7000 spins; the plan's pick against plans of other cluster
                 sizes at the Gset, (2, 50, 300) and 7000-spin shapes; one
                 end-to-end sb-jax solve at the Gset shape.
@@ -86,6 +87,31 @@ exits nonzero:
                 fallback chain's sb-jax rung (the SB kernel); a 2-worker
                 IsingFleet with one worker killed (zero lost tickets);
                 launch/serve_ising.py in a subprocess.
+ 14. fabric   — the mega-fabric (fabric-jax) on virtual dies of the card,
+                with the reference benchmark's settings
+                (benchmarks/fabric_scaling.py): FieldExchange at N=2000
+                bitwise against the float64 host product for K = 1, 3, 8,
+                with each call's host time; both mesh-invariance rows
+                bit-identical (N=252 K 1 vs 8, N=378 K 1 vs 2); fabric-jax
+                bitwise equal to engine at N=48; the N=2000 duel at K=8
+                (dispatches == colors x sweeps == anneal launches, cut from
+                energy == cut from spins, best energy within 2% of
+                chip-lns's and cut within 2% of the reference's recorded
+                4144, the ledger's per-sweep split); the anneal kernel
+                against its plain version on the first color phase's batch
+                (tiles plus the boundary-field ancilla) of the duel
+                (64, 4, 64) and of the CLI's solve (4096, 8, 64), unit
+                schedule bitwise and the fabric's perturbed schedule within
+                the compare phase's limits; the solve CLI on one N=2000 Gset problem with --mesh-devices 8
+                in a subprocess.
+ 15. lm       — the LM serving path: qwen3-0.6b reduced() in float32 on
+                the card against the CPU with the same weights (prefill
+                logits within 1e-4, 8 greedy tokens equal); serve_lm.serve
+                at full size (28 layers, d_model 1024, vocab 151936,
+                bfloat16) at batch 4, prompt 64, gen 32 with its times and
+                peak memory; finite logits and the top-1 agreement of
+                bfloat16 with float32 on the same weights; the serve_lm CLI
+                at full size in a subprocess.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -1050,12 +1076,12 @@ def sb_plan_alternatives(Jc, x0, y0, steps, clusters):
 def phase_sb_timing():
     """Each SB variant's kernel (median of 5, CUDA events, after a warm-up;
     the plan's default block_r) and plain version (median of 3 dense, one
-    call at Gset) at both
-    main shapes, the bound (all operations, and the real spins' alone: sum
-    over problems of 2·R·n²·T), the launch plan with its instance's
-    registers and spills; at the Gset shape the products-only yardstick
-    (400 f32 products (256, 2048) @ (2048, 2048), TF32 off) and the
-    card's cluster capacity; the kernel alone on the 7000-spin graph; the
+    call at Gset) at both main shapes, the bound (all operations, and the
+    real spins' alone: sum over problems of 2·R·n²·T), the launch plan with
+    its instance's registers and spills, and the products-only yardstick
+    (``library_ms``: T f32 products (P, R, N) @ (P, N, N), TF32 off, by
+    ``products_ms``); at the Gset shape the card's cluster capacity; the
+    kernel alone on the 7000-spin graph; the
     plan's pick against other cluster sizes (``SB_PLAN_ALTERNATIVES``);
     then one end-to-end sb-jax solve at the Gset shape. Returns the
     Gset-shape rows."""
@@ -1077,6 +1103,9 @@ def phase_sb_timing():
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = ops / PEAK_OPS["float32"] * 1e3
         plan = sb_plan_row(x0)
+        # a yardstick only: the port never calls it, and no single library
+        # call computes an SB integration
+        lib_ms, lib_all = products_ms(P, R, N, steps, torch.float32)
         for variant in SB_VARIANTS:
             kw = dict(variant=variant, n_steps=steps, dt=0.5, a0=1.0)
             k = cuda_ms(lambda: fused_sb_kernel(Jc, x0, y0, **kw), 5)
@@ -1097,31 +1126,20 @@ def phase_sb_timing():
                    "real_operations": real_ops,
                    "real_bound_ms": max(real_ops / PEAK_OPS["float32"] * 1e3,
                                         t_bytes),
-                   "library_ms": None}
+                   "library_ms": lib_ms, "library_ms_all": lib_all,
+                   "library_what": f"{steps} x torch.matmul ({P}, {R}, {N}) "
+                                   f"@ ({P}, {N}, {N}) float32, TF32 off"}
             emit({"phase": "timing", "shape_of": label, **row})
             if label == "gset":
                 rows[variant] = row
         if label == "gset":
             check(plan["spill_stores"] == 0 and plan["spill_loads"] == 0,
                   f"the Gset-shape instance spills: {plan}")
-            # a yardstick only: the port never calls it, and no single
-            # library call computes an SB integration (library_ms is null)
-            a = torch.randn(R, N, device="cuda")
-            b = torch.randn(N, N, device="cuda")
-
-            def products():
-                for _ in range(steps):
-                    torch.matmul(a, b)
-            prod = cuda_ms(products, 3)
             lib = sbk._library()
             capacity = {c: lib.sb_cluster_capacity(1, c, plan["threads"],
                                                    plan["smem_bytes"])
                         for c in range(1, sbk.MAX_CLUSTER + 1)}
             emit({"phase": "timing", "shape_of": label,
-                  "products_only_ms": statistics.median(prod),
-                  "products_only_ms_all": prod,
-                  "what": f"{steps} x torch.matmul ({R}, {N}) @ ({N}, {N}) "
-                          "float32, TF32 off",
                   "cluster_capacity_at_plan_geometry": capacity})
     for label, clusters in SB_PLAN_ALTERNATIVES.items():
         problems, runs, block, steps = cases[label]
@@ -1923,8 +1941,355 @@ def phase_serve():
     return {"burst": burst, "chaos": chaos, "fleet": fl}
 
 
+#: the reference fabric benchmark's settings (benchmarks/fabric_scaling.py):
+#: the fabric's and chip-lns's solver options, restarts and seed, the duel's
+#: quality tolerance, and its mesh-invariance rows (N, (K, K'))
+FABRIC_OPTS = dict(anneal_sweeps=0.5, inner_runs=4, outer_sweeps=2)
+FABRIC_RESTARTS, FABRIC_SEED = 4, 1207
+DUEL_QUALITY_RTOL = 0.02
+FABRIC_INVARIANCE = ((252, (1, 8)), (378, (1, 2)))
+
+
+class PhaseCaptured(Exception):
+    """Ends a solve once its first color phase's batch is captured."""
+
+
+@contextlib.contextmanager
+def first_engine_batch(stop: bool):
+    """Spy on ``AnnealEngine.run``: the first call's engine, J and v0 (as
+    float32 copies on the engine's device, as the run takes them, before
+    the call). With ``stop`` that call raises ``PhaseCaptured`` instead of
+    running; the spy launches nothing."""
+    import torch
+
+    from repro_torch.core.engine import AnnealEngine
+    run, seen = AnnealEngine.run, {}
+
+    def spy(self, J, v0, *args, **kw):
+        if not seen:
+            seen.update(engine=self, **{
+                name: torch.as_tensor(x).to(self.torch_device,
+                                            torch.float32).contiguous().clone()
+                for name, x in (("J", J), ("v0", v0))})
+            if stop:
+                raise PhaseCaptured
+        return run(self, J, v0, *args, **kw)
+    AnnealEngine.run = spy
+    try:
+        yield seen
+    finally:
+        AnnealEngine.run = run
+
+
+def fabric_phase_compare(label, seen):
+    """One color phase's die-aligned batch (tiles plus the boundary-field
+    ancilla) and v0, as the fabric handed them to the engine: the kernel
+    against its plain version in the variant the engine picks, under the
+    unit schedule (bitwise) and under the fabric's own perturbed schedule
+    (the limits of ``phase_compare``)."""
+    eng, J, v0 = seen["engine"], seen["J"], seen["v0"]
+    j_dtype = eng.plan(*v0.shape, J=J).j_dtype
+    unit_dev, unit_pert = variants()["int8"]
+    unit_dev = dataclasses.replace(unit_dev,
+                                   anneal_sweeps=eng.device.anneal_sweeps)
+    for sched, dev, pert in (("unit", unit_dev, unit_pert),
+                             ("perturbation", eng.device, eng.perturbation)):
+        st = compare_one(J, v0, dev, pert, j_dtype)
+        emit({"phase": "fabric", "kernel_compare": label, "schedule": sched,
+              "anneal_sweeps": dev.anneal_sweeps,
+              "max_abs_J": float(J.abs().max()), **st})
+        what = f"fabric {label} {sched} ({j_dtype} {st['shape']})"
+        check(st["bitwise_repeat"] and st["bitwise_plans"] is not False,
+              f"{what}: kernel not the same bits across calls / plans")
+        if sched == "unit":
+            check(st["bitwise"], f"{what}: kernel and plain version differ "
+                  f"(max {st['max_abs_err']})")
+        check(st["runs_differing"] <= 0.05 * st["runs"],
+              f"{what}: {st['runs_differing']} of {st['runs']} runs end on "
+              "other spins (limit 5%)")
+        check(st["max_abs_err_agreeing_runs"] <= 1e-5,
+              f"{what}: |dv| {st['max_abs_err_agreeing_runs']} over agreeing "
+              "runs (limit 1e-5)")
+        check(st["max_sr_gap"] <= 0.03,
+              f"{what}: SR gap {st['max_sr_gap']} (limit 0.03)")
+
+
+def fabric_solve(problem, mesh_devices):
+    from repro_torch.api import get_solver
+    return get_solver("fabric-jax", mesh_devices=mesh_devices,
+                      torch_device="cuda", **FABRIC_OPTS).solve(
+        problem, runs=FABRIC_RESTARTS, seed=FABRIC_SEED)
+
+
+def phase_fabric():
+    """The mega-fabric on virtual dies of the card: the field exchange
+    bitwise at N=2000, the mesh-invariance rows, N=48 parity with the
+    engine, the N=2000 duel against chip-lns (launch counts read around
+    exactly the duel's fabric solve, which is this path's run), the anneal
+    kernel against its plain version on the duel's and the CLI's fabric
+    batches, and the CLI with --mesh-devices 8. Returns the duel's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Problem, get_solver
+    from repro_torch.core.hamiltonian import maxcut_value
+    from repro_torch.distributed import FieldExchange, fabric_mesh
+    from repro_torch.kernels import ising_anneal as ka
+    from repro_torch.problems import cut_from_energy, gset_problem
+
+    duel = duel_problem()
+    J = duel.J_levels.astype(np.float64)
+    s = np.random.default_rng(FABRIC_SEED).choice([-1.0, 1.0],
+                                                  size=(256, duel.n))
+    want = s @ J
+    for k in (1, 3, 8):
+        ex = FieldExchange(J, fabric_mesh(k, torch_device="cuda"))
+        h = ex.fields(s)
+        same = bool(np.array_equal(h.astype(np.float64), want))
+        # one call as the fabric makes it: the states to the card, K
+        # products summed in die order, the fields back to the host
+        host_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            ex.fields(s)
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+        emit({"phase": "fabric", "exchange": {"n": duel.n, "dies": k,
+              "n_pad": ex.n_pad, "restarts": s.shape[0],
+              "bitwise_equal_float64_host": same,
+              "call_ms_median": statistics.median(host_ms),
+              "call_ms_min": min(host_ms)}})
+        check(same, f"FieldExchange K={k} differs from the host product")
+
+    for n, pair in FABRIC_INVARIANCE:
+        p = gset_problem(n, seed=FABRIC_SEED + 1, degree=6.0)
+        a, b = (fabric_solve(p, k) for k in pair)
+        same = bool(np.array_equal(a.energies[0], b.energies[0]) and
+                    np.array_equal(a.best_sigma[0], b.best_sigma[0]))
+        emit({"phase": "fabric", "mesh_invariance": {
+            "n": n, "mesh_devices": list(pair),
+            "n_tiles": a.meta["fabric"]["n_tiles"][0],
+            "color_peaks": [a.meta["fabric"]["color_peaks"],
+                            b.meta["fabric"]["color_peaks"]],
+            "best_energy": float(np.min(a.energies[0])),
+            "bit_identical": same}})
+        check(same, f"fabric output differs between {pair} dies at N={n}")
+
+    p48 = Problem.maxcut(48, density=0.5, seed=FABRIC_SEED)
+    rep_f = get_solver("fabric-jax", torch_device="cuda").solve(
+        p48, runs=8, seed=FABRIC_SEED)
+    rep_e = get_solver("engine", torch_device="cuda").solve(
+        p48, runs=8, seed=FABRIC_SEED)
+    same = bool(np.array_equal(rep_f.energies[0], rep_e.energies[0]) and
+                np.array_equal(rep_f.best_sigma[0], rep_e.best_sigma[0]))
+    emit({"phase": "fabric", "engine_parity": {"n": 48, "runs": 8,
+                                               "bit_identical": same}})
+    check(same, "N=48 fabric-jax differs from the engine")
+
+    W = duel.meta["W"]
+    with first_engine_batch(stop=False) as duel_batch:
+        ka.reset_launches()
+        rep = fabric_solve(duel, 8)
+        launches = dict(ka.launches)
+    fab = rep.meta["fabric"]
+    sweeps = FABRIC_OPTS["outer_sweeps"]
+    e_fab = float(np.min(rep.energies[0]))
+    cut_e = cut_from_energy(W, e_fab)
+    cut_s = float(maxcut_value(torch.as_tensor(W, dtype=torch.float64),
+                               torch.as_tensor(rep.best_sigma[0])))
+    rep_c = get_solver("chip-lns", torch_device="cuda", **FABRIC_OPTS).solve(
+        duel, runs=FABRIC_RESTARTS, seed=FABRIC_SEED)
+    e_chip = float(np.min(rep_c.energies[0]))
+    j_dtypes = [d for rec in fab["per_sweep"] for d in rec["j_dtypes"]]
+    emit({"phase": "fabric", "duel": {
+        "n": duel.n, "mesh_devices": fab["mesh_devices"],
+        "restarts": FABRIC_RESTARTS, "outer_sweeps": sweeps,
+        "best_energy": e_fab, "best_cut": cut_e, "cut_from_spins": cut_s,
+        "recorded_reference_cut": DUEL_RECORDED["fabric-jax"],
+        "chip_lns_best_energy": e_chip,
+        "chip_lns_cut": cut_from_energy(W, e_chip),
+        "dispatches": rep.dispatches, "n_colors": fab["n_colors"],
+        "n_tiles": fab["n_tiles"], "color_peaks": fab["color_peaks"],
+        "field_exchanges": fab["field_exchanges"], "launches": launches,
+        "j_dtypes": j_dtypes, "wall_s": rep.wall_s,
+        "chip_lns_wall_s": rep_c.wall_s, "plan_s": fab["plan_s"],
+        "per_sweep": fab["per_sweep"]}})
+    check(rep.dispatches == fab["n_colors"] * sweeps,
+          f"duel: {rep.dispatches} dispatches for {fab['n_colors']} colors "
+          f"x {sweeps} sweeps")
+    check(sum(launches.values()) == rep.dispatches and all(
+        launches[ka.KERNEL_NAMES[d]] == j_dtypes.count(d)
+        for d in set(j_dtypes)),
+        f"duel: anneal launches {launches} for {rep.dispatches} dispatches "
+        f"of {j_dtypes}")
+    check(cut_e == cut_s, f"duel: cut from energy {cut_e} != cut from "
+          f"spins {cut_s}")
+    check(e_fab <= e_chip + DUEL_QUALITY_RTOL * abs(e_chip),
+          f"duel: fabric best energy {e_fab} worse than chip-lns {e_chip} "
+          f"beyond {DUEL_QUALITY_RTOL:.0%}")
+    ref_cut = DUEL_RECORDED["fabric-jax"]
+    check(cut_e >= (1 - DUEL_QUALITY_RTOL) * ref_cut,
+          f"duel: cut {cut_e} below the reference's {ref_cut} by more than "
+          f"{DUEL_QUALITY_RTOL:.0%}")
+
+    # the kernel against its plain version on the fabric's own batches: the
+    # duel's first color phase, and the CLI's (below) first color phase,
+    # captured from the CLI's solve in this process and stopped there
+    fabric_phase_compare("duel", duel_batch)
+    from repro_torch.launch.solve import solve
+    with first_engine_batch(stop=True) as cli_batch:
+        try:
+            solve(2000, 0.5, 1, 256, solver="fabric-jax", workload="gset",
+                  oracle=False, torch_device="cuda", mesh_devices=8)
+        except PhaseCaptured:
+            pass
+    check(bool(cli_batch), "the CLI's fabric solve made no engine call")
+    fabric_phase_compare("cli", cli_batch)
+
+    # one problem (the CLI's default is 4, whose 64 outer sweeps of host
+    # acceptance at 256 restarts would take minutes of the run's limit)
+    cmd = [sys.executable, "-m", "repro_torch.launch.solve", "--solver",
+           "fabric-jax", "--workload", "gset", "--spins", "2000",
+           "--problems", "1", "--mesh-devices", "8", "--no-oracle"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    lines = proc.stdout.strip().splitlines()
+    fabric_lines = [ln for ln in lines if ln.startswith("[fabric]")]
+    emit({"phase": "fabric", "cli": " ".join(cmd[1:]), "rc": proc.returncode,
+          "cli_s": time.perf_counter() - t0, "fabric_lines": fabric_lines,
+          "stdout_tail": lines[-6:],
+          "stderr_tail": proc.stderr.strip().splitlines()[-5:]})
+    check(proc.returncode == 0 and fabric_lines and
+          fabric_lines[0].startswith("[fabric] 8 dies"),
+          f"fabric CLI exited {proc.returncode} without its [fabric] lines")
+    return launches
+
+
+LM_ARCH = "qwen3-0.6b"
+LM_SERVE = dict(batch=4, prompt_len=64, gen=32)
+
+
+def lm_greedy(model, params, prompts, gen):
+    """Prefill logits and ``gen`` greedy tokens of ``prompts``."""
+    import torch
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  max_len=prompts.shape[1] + gen)
+    first, toks = logits, []
+    for _ in range(gen):
+        toks.append(torch.argmax(logits, -1))
+        logits, cache = model.decode_step(params, cache, toks[-1])
+    return first, torch.stack(toks, dim=1)
+
+
+def top2_gap(logits):
+    top2 = logits.float().topk(2, dim=-1).values
+    return float((top2[..., 0] - top2[..., 1]).min())
+
+
+def phase_lm():
+    """The LM serving path (no kernel of its own: the reference's attention
+    is plain jnp). qwen3-0.6b reduced() in float32 on the card against the
+    CPU with the same weights (carried by ``convert``, TF32 off); the full
+    model served by ``serve_lm.serve`` (its times, peak allocated memory);
+    on the same weights, finite logits and the top-1 agreement of bfloat16
+    with float32 over the prompts' positions; the serve_lm CLI."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import transformer_params_from_arrays
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build
+
+    cfg = get_config(LM_ARCH).reduced()
+    model = build(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0))
+
+    def arrays(tree):
+        return {k: arrays(v) if isinstance(v, dict) else v.numpy()
+                for k, v in tree.items()}
+    card = transformer_params_from_arrays(arrays(cpu), cfg,
+                                          torch_device="cuda")
+    prompts, _ = SyntheticLM(cfg.vocab_size, 16, 2).batch_at(0)
+    prompts = torch.as_tensor(prompts)
+    with torch.inference_mode():
+        lg_cpu, tok_cpu = lm_greedy(model, cpu, prompts, 8)
+        lg_card, tok_card = lm_greedy(model, card, prompts.cuda(), 8)
+    err = float((lg_card.cpu() - lg_cpu).abs().max())
+    same = bool(torch.equal(tok_card.cpu(), tok_cpu))
+    emit({"phase": "lm", "card_vs_cpu": {
+        "arch": LM_ARCH, "config": "reduced, float32", "prompt": [2, 16],
+        "prefill_max_abs_err": err, "greedy_tokens_equal": same,
+        "min_top2_gap": top2_gap(lg_cpu)}})
+    check(err <= 1e-4, f"reduced {LM_ARCH}: card prefill logits off by {err}")
+    check(same, f"reduced {LM_ARCH}: greedy tokens differ card vs CPU")
+
+    full = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_lm.serve(LM_ARCH, reduced=False, torch_device="cuda",
+                         **LM_SERVE)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "lm", "serve": {
+        "arch": LM_ARCH, "n_layers": full.n_layers, "d_model": full.d_model,
+        "vocab": full.vocab_size, "dtype": full.dtype, **LM_SERVE,
+        "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+        "tok_per_s": out["tok_per_s"], "peak_allocated_gib": peak / 2**30,
+        "generated_shape": list(out["generated"].shape),
+        "sample": out["generated"][0][:16].tolist()}})
+    check(out["generated"].shape == (LM_SERVE["batch"], LM_SERVE["gen"]),
+          f"serve returned {out['generated'].shape}")
+
+    # the served weights again (serve draws them from seed 0 on the card),
+    # run in bfloat16 and in float32 over the same prompts
+    params = build(full).init(torch.Generator(device="cuda").manual_seed(0))
+    prompts, _ = SyntheticLM(full.vocab_size, LM_SERVE["prompt_len"],
+                             LM_SERVE["batch"]).batch_at(0)
+    prompts = torch.as_tensor(prompts, device="cuda")
+    logits = {}
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(full, dtype=dtype)
+            h = build(c).forward(params, {"tokens": prompts})
+            head = params["head"].to(h.dtype)
+            logits[dtype] = (h @ head).float()[..., :full.vocab_size]
+        _, toks32 = lm_greedy(build(dataclasses.replace(
+            full, dtype="float32")), params, prompts, LM_SERVE["gen"])
+    finite = bool(torch.isfinite(logits["bfloat16"]).all())
+    agree = float((logits["bfloat16"].argmax(-1) ==
+                   logits["float32"].argmax(-1)).float().mean())
+    same_gen = (toks32.cpu().numpy() == out["generated"])
+    emit({"phase": "lm", "bf16_vs_f32": {
+        "positions": int(logits["float32"].shape[0] *
+                         logits["float32"].shape[1]),
+        "logits_finite": finite, "top1_agreement": agree,
+        "max_abs_logit_diff": float((logits["bfloat16"] -
+                                     logits["float32"]).abs().max()),
+        "greedy_tokens_equal_f32": float(same_gen.mean()),
+        "greedy_first_divergence": [
+            int(np.argmin(row)) if not row.all() else None
+            for row in same_gen]}})
+    check(finite, f"{LM_ARCH} full size: non-finite bfloat16 logits")
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+           LM_ARCH, "--full-size"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    emit({"phase": "lm", "cli": " ".join(cmd[1:]), "rc": proc.returncode,
+          "cli_s": time.perf_counter() - t0,
+          "stdout_tail": proc.stdout.strip().splitlines()[-2:],
+          "stderr_tail": proc.stderr.strip().splitlines()[-5:]})
+    check(proc.returncode == 0 and "tok/s" in proc.stdout,
+          f"serve_lm CLI exited {proc.returncode}")
+
+
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
-          "gset", "sb_timing", "search", "zoo", "physics", "serve")
+          "gset", "sb_timing", "search", "zoo", "physics", "serve",
+          "fabric", "lm")
 
 
 def main(argv=None) -> int:
@@ -1968,6 +2333,8 @@ def main(argv=None) -> int:
             "zoo": phase_zoo,
             "physics": lambda: phase_physics(oracle_path),
             "serve": phase_serve,
+            "fabric": phase_fabric,
+            "lm": phase_lm,
         }
         out = {name: run[name]() for name in PHASES if name in phases}
     emit({"phase": "end", "total_s": time.perf_counter() - START})
@@ -1978,6 +2345,7 @@ def main(argv=None) -> int:
     err, launches, timing = out["compare"], out["main"], out["timing"]
     sb_err, sb_launches = out["sb_compare"], out["sb_main"]
     sb_timing = out["sb_timing"]
+    fabric_launches = out["fabric"]
 
     kernels = []
     for j_dtype, row in timing.items():
@@ -1985,7 +2353,7 @@ def main(argv=None) -> int:
             "name": row["name"], "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ising_anneal.cu",
             "replaces": "src/repro/kernels/ising_anneal.py:59",
-            "launches": launches[row["name"]],
+            "launches": launches[row["name"]] + fabric_launches[row["name"]],
             "max_abs_err": err[j_dtype], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -1997,7 +2365,7 @@ def main(argv=None) -> int:
             "launches": sb_launches[row["name"]],
             "max_abs_err": sb_err[variant], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} not launched on the "
               "main path")

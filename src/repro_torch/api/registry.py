@@ -15,11 +15,13 @@ Batched solvers bucket heterogeneous suites by padded size, so a mixed
 Registered here: ``engine`` (the digital twin on the AnnealEngine, variants
 ``perturbation`` / ``gd`` / ``noise``), ``sb-jax`` (simulated bifurcation on
 its own kernel; the reference's name), ``chip-lns`` (block decomposition of
-N > 64 onto the engine), the classical search tier (``sa-jax``, ``pt-jax``
-and ``tabu-jax``: batched torch loops, one batch per pad bucket; ``sa-numpy``
-and ``tabu``: host numpy loops, one call per problem), ``ode-jax`` (the
-analog device-physics tier over a virtual-chip fleet, one batched call per
-pad bucket) and ``brute-force`` (exact). Every solver takes ``torch_device`` (default ``"cuda"``; raises
+N > 64 onto the engine), ``fabric-jax`` (checkerboard decomposition over
+virtual dies, one engine dispatch per color phase), the classical search
+tier (``sa-jax``, ``pt-jax`` and ``tabu-jax``: batched torch loops, one
+batch per pad bucket; ``sa-numpy`` and ``tabu``: host numpy loops, one call
+per problem), ``ode-jax`` (the analog device-physics tier over a
+virtual-chip fleet, one batched call per pad bucket) and ``brute-force``
+(exact). Every solver takes ``torch_device`` (default ``"cuda"``; raises
 without CUDA unless it is ``"cpu"``).
 """
 from __future__ import annotations
@@ -624,74 +626,147 @@ class ChipLNSSolver:
     def solve(self, suite, runs: int = 64, seed: int = 0,
               budget: Optional[float] = None,
               block: int = CHIP_BLOCK) -> SolveReport:
-        from ..core.engine import BlockLNS, lns_blocks
-        suite = as_suite(suite)
-        wall = 0.0
-        # Delegation threshold: the direct engine can only take what BOTH
-        # the requested block and its own die cap allow — with block > 64
-        # the oversized problems must still decompose.
-        delegate_n = min(block, EngineSolver.caps.max_n or block)
-        small = [i for i, n in enumerate(suite.sizes) if n <= delegate_n]
-        big = [i for i, n in enumerate(suite.sizes) if n > delegate_n]
+        from ..core.engine import BlockLNS
 
-        energies = [None] * len(suite)
-        sigmas = [None] * len(suite)
-        dispatches = 0
-        compile_s = 0.0
-        meta = {"block": block, "inner_runs": self.inner_runs,
-                "lns_problems": big, "torch_device": str(self.torch_device)}
+        def make_lns(die):
+            return BlockLNS(self._engine(), chip_block=die,
+                            inner_runs=self.inner_runs)
 
-        if small:
-            sub = ProblemSuite([suite[i] for i in small])
-            rep = EngineSolver(backend=self.backend, warmup=self.warmup,
-                               torch_device=self.torch_device).solve(
-                sub, runs=runs, seed=seed, budget=None, block=delegate_n)
-            for k, i in enumerate(small):
-                energies[i] = rep.energies[k]
-                sigmas[i] = rep.best_sigma[k]
-            dispatches += rep.dispatches
-            compile_s += rep.compile_s
-            wall += rep.wall_s
-            meta["engine_plan"] = rep.meta.get("engine_plan")
+        def lns_meta(lns, n_blocks):
+            return {"lns_timings": lns.last_timings, "n_blocks": n_blocks}
+        return _decomposition_report(self, suite, runs, seed, budget, block,
+                                     make_lns, lns_meta)
 
-        if big:
-            n_blocks = max(len(lns_blocks(suite[i].n, delegate_n - 1))
-                           for i in big)
-            outer = self.outer_sweeps or max(4, 2 * n_blocks)
-            outer = search_effort(outer, runs, budget).iters
-            # the die is delegate_n, never the (possibly larger) pad block
-            lns = BlockLNS(self._engine(), chip_block=delegate_n,
-                           inner_runs=self.inner_runs)
-            big_J = [suite[i].J_levels.astype(np.float64) for i in big]
-            if self.warmup:
-                # same first-call / steady split as _bucketed_report: a
-                # discarded identical solve (deterministic seed) first
-                tw = time.time()
-                lns.solve(big_J, restarts=runs, outer_sweeps=outer,
-                          seed=seed + 104729)
-                t_first = time.time() - tw
-            t0 = time.time()
-            results, d = lns.solve(big_J, restarts=runs,
-                                   outer_sweeps=outer, seed=seed + 104729)
-            if self.warmup:
-                compile_s += max(0.0, t_first - (time.time() - t0))
-            dispatches += d
-            meta["outer_sweeps"] = outer
-            meta["lns_timings"] = lns.last_timings
-            meta["n_blocks"] = n_blocks
-            meta["init_energies"] = {}
-            for (e, s, e0), i in zip(results, big):
-                energies[i] = e
-                sigmas[i] = s[int(np.argmin(e))]
-                meta["init_energies"][i] = e0.tolist()
-            wall += time.time() - t0
 
-        return SolveReport(
-            solver=self.name, runs=runs, energies=energies,
-            best_sigma=sigmas, problem_hashes=suite.hashes,
-            sizes=suite.sizes, scales=tuple(p.scale for p in suite),
-            wall_s=wall, compile_s=compile_s, dispatches=dispatches,
-            meta=meta)
+def _decomposition_report(solver, suite, runs, seed, budget, block,
+                          make_lns, lns_meta) -> SolveReport:
+    """The solve of the decomposition solvers (chip-lns, fabric-jax).
+
+    Problems with N <= the die (``min(block, engine max_n)``) go verbatim to
+    the direct engine solve; larger ones to ``make_lns(die)`` (a
+    ``BlockLNS`` or ``FabricLNS``) at the shared effort mapping, so the two
+    tiers compare at equal work: outer sweeps ``max(4, 2 * blocks)`` times
+    the budget, ``runs`` restarts, the solver's inner runs.
+    ``lns_meta(lns, n_blocks)`` adds the tier's own ledger to the meta."""
+    from ..core.engine import lns_blocks
+    suite = as_suite(suite)
+    wall = 0.0
+    # Delegation threshold: the direct engine can only take what BOTH the
+    # requested block and its own die cap allow: with block > 64 the
+    # oversized problems must still decompose.
+    delegate_n = min(block, EngineSolver.caps.max_n or block)
+    small = [i for i, n in enumerate(suite.sizes) if n <= delegate_n]
+    big = [i for i, n in enumerate(suite.sizes) if n > delegate_n]
+
+    energies = [None] * len(suite)
+    sigmas = [None] * len(suite)
+    dispatches = 0
+    compile_s = 0.0
+    meta = {"block": block, "inner_runs": solver.inner_runs,
+            "lns_problems": big, "torch_device": str(solver.torch_device)}
+
+    if small:
+        sub = ProblemSuite([suite[i] for i in small])
+        rep = EngineSolver(backend=solver.backend, warmup=solver.warmup,
+                           torch_device=solver.torch_device).solve(
+            sub, runs=runs, seed=seed, budget=None, block=delegate_n)
+        for k, i in enumerate(small):
+            energies[i] = rep.energies[k]
+            sigmas[i] = rep.best_sigma[k]
+        dispatches += rep.dispatches
+        compile_s += rep.compile_s
+        wall += rep.wall_s
+        meta["engine_plan"] = rep.meta.get("engine_plan")
+
+    if big:
+        n_blocks = max(len(lns_blocks(suite[i].n, delegate_n - 1))
+                       for i in big)
+        outer = solver.outer_sweeps or max(4, 2 * n_blocks)
+        outer = search_effort(outer, runs, budget).iters
+        # the die is delegate_n, never the (possibly larger) pad block
+        lns = make_lns(delegate_n)
+        big_J = [suite[i].J_levels.astype(np.float64) for i in big]
+        if solver.warmup:
+            # same first-call / steady split as _bucketed_report: a
+            # discarded identical solve (deterministic seed) first
+            tw = time.time()
+            lns.solve(big_J, restarts=runs, outer_sweeps=outer,
+                      seed=seed + 104729)
+            t_first = time.time() - tw
+        t0 = time.time()
+        results, d = lns.solve(big_J, restarts=runs, outer_sweeps=outer,
+                               seed=seed + 104729)
+        if solver.warmup:
+            compile_s += max(0.0, t_first - (time.time() - t0))
+        dispatches += d
+        meta["outer_sweeps"] = outer
+        meta.update(lns_meta(lns, n_blocks))
+        meta["init_energies"] = {}
+        for (e, s, e0), i in zip(results, big):
+            energies[i] = e
+            sigmas[i] = s[int(np.argmin(e))]
+            meta["init_energies"][i] = e0.tolist()
+        wall += time.time() - t0
+
+    return SolveReport(
+        solver=solver.name, runs=runs, energies=energies,
+        best_sigma=sigmas, problem_hashes=suite.hashes,
+        sizes=suite.sizes, scales=tuple(p.scale for p in suite),
+        wall_s=wall, compile_s=compile_s, dispatches=dispatches,
+        meta=meta)
+
+
+@register_solver("fabric-jax", needs_oracle=True, exact=False, device="torch")
+class FabricSolver:
+    """Checkerboard LNS over virtual dies: the mega-fabric
+    (``distributed.fabric.FabricLNS``). No capacity limit.
+
+    Where 'chip-lns' anneals every block of an outer sweep in one dispatch
+    and accepts them in block order, 'fabric-jax' 2-colors the tile grid
+    and anneals every tile of a color class in one dispatch across the
+    dies: ``n_colors x outer_sweeps`` engine dispatches per solve, never
+    one per block, with the clamped-spin boundary fields computed on the
+    device as per-die partial products summed in die order. Acceptance is
+    BlockLNS's exact float64 delta-energy rule (monotone incumbents), and
+    since level-space fields are integer-exact in float32, results are
+    bit-identical for every mesh size. Problems with N <= ``block``
+    delegate verbatim to the direct engine solve, exactly like 'chip-lns'
+    (same effort mapping too).
+
+    ``mesh_devices`` is the number of virtual dies (default one; all on
+    ``torch_device``, see ``fabric_mesh``). ``meta['fabric']`` carries the
+    per-color occupancy / timing ledger.
+    """
+
+    def __init__(self, backend: str = "auto", inner_runs: int = 8,
+                 outer_sweeps: Optional[int] = None,
+                 anneal_sweeps: Optional[float] = None,
+                 mesh_devices: Optional[int] = None,
+                 warmup: bool = False,
+                 torch_device: str | torch.device = "cuda"):
+        self.backend = backend
+        self.inner_runs = inner_runs
+        self.outer_sweeps = outer_sweeps
+        self.anneal_sweeps = anneal_sweeps
+        self.mesh_devices = mesh_devices
+        self.warmup = warmup
+        self.torch_device = resolve_device(torch_device)
+
+    _engine = ChipLNSSolver._engine
+
+    def solve(self, suite, runs: int = 64, seed: int = 0,
+              budget: Optional[float] = None,
+              block: int = CHIP_BLOCK) -> SolveReport:
+        from ..distributed.fabric import FabricLNS, fabric_mesh
+
+        def make_lns(die):
+            return FabricLNS(self._engine(),
+                             mesh=fabric_mesh(self.mesh_devices,
+                                              self.torch_device),
+                             chip_block=die, inner_runs=self.inner_runs)
+        return _decomposition_report(self, suite, runs, seed, budget, block,
+                                     make_lns,
+                                     lambda lns, _: {"fabric": lns.ledger})
 
 
 @register_solver("ode-jax", needs_oracle=True, exact=False, device="torch",

@@ -154,3 +154,40 @@ def tabu_draws_from_arrays(s0, kick,
     out = _draw_tensors((s0, kick), (np.float32, np.int64), dev)
     _check_leading(("s0", "kick"), out, 2)
     return out
+
+
+def transformer_params_from_arrays(tree, cfg,
+                                   torch_device: str | torch.device = "cuda"):
+    """The reference's transformer parameter tree (nested dicts of numpy
+    arrays, blocks stacked as (L, ...) leaves: ``jax.tree.map(np.asarray,
+    params)``) as the port's float32 parameters on ``torch_device``, for
+    ``repro_torch.models.transformer`` (dense family). The two trees have
+    one layout, so the leaves are copied as they are."""
+    from .models.transformer import check_family, padded_vocab
+    check_family(cfg)
+    dev = resolve_device(torch_device)
+
+    def leaf(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=dev)
+
+    def walk(t):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v)
+                for k, v in t.items()}
+    params = walk(tree)
+    want = (padded_vocab(cfg), cfg.d_model)
+    if tuple(params["embed"].shape) != want:
+        raise ValueError(f"embed is {tuple(params['embed'].shape)}, "
+                         f"{cfg.name} needs {want}")
+    layers = {tuple(t.shape[:1]) for t in _leaves(params["blocks"])}
+    if layers != {(cfg.n_layers,)}:
+        raise ValueError(f"block leaves stack {sorted(layers)} layers, "
+                         f"{cfg.name} has {cfg.n_layers}")
+    return params
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v

@@ -40,6 +40,7 @@ class AnnealResult:
     sigma: torch.Tensor                       # (P, R, N) final spins (+-1)
     energy: torch.Tensor                      # (P, R) final Ising energy
     energy_traj: Optional[torch.Tensor] = None  # (P, R, T_rec) if recorded
+    j_dtype: Optional[str] = None             # variant AnnealEngine.run chose
 
 
 def _compute_dtype(dev: DeviceModel) -> torch.dtype:

@@ -209,22 +209,24 @@ class AnnealEngine:
             dev = dataclasses.replace(dev, n_spins=N)
         needs_scan = bool(record_every) or (
             noise_seed is not None and dev.noise_sigma > 0)
-        run_j_dtype = self._auto_j_dtype(J)
         if self.autotune_enabled and not needs_scan and \
-                self.path != "scan" and \
-                self._key(P, R, N, run_j_dtype) not in self._cache:
-            self.autotune(P, R, N, j_dtype=run_j_dtype)
+                self.path != "scan":
+            run_j_dtype = self._auto_j_dtype(J)
+            if self._key(P, R, N, run_j_dtype) not in self._cache:
+                self.autotune(P, R, N, j_dtype=run_j_dtype)
         plan = self.plan(P, R, N, J=J, needs_scan=needs_scan)
 
         if plan.path == "scan":
-            return anneal(J, v0, dev, self.perturbation, noise_seed=noise_seed,
-                          record_every=record_every)
+            res = anneal(J, v0, dev, self.perturbation, noise_seed=noise_seed,
+                         record_every=record_every)
+            return dataclasses.replace(res, j_dtype=plan.j_dtype)
 
         from ..kernels import ops as kops
         v, sigma, energy = kops.fused_anneal(
             J, v0, dev, self.perturbation, block_r=plan.block_r,
             j_dtype=plan.j_dtype)
-        return AnnealResult(v_final=v, sigma=sigma, energy=energy)
+        return AnnealResult(v_final=v, sigma=sigma, energy=energy,
+                            j_dtype=plan.j_dtype)
 
 
 # ---------------------------------------------------------------------------

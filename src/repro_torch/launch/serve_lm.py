@@ -1,0 +1,93 @@
+"""Batched LM serving: prefill once, then token-by-token greedy
+decode (the reference's ``launch.serve_lm``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen3-0.6b \
+        --batch 4 --prompt-len 64 --gen 32 [--full-size] [--torch-device cpu]
+
+Random weights drawn from a seed (``serve(seed=0)``; nothing is
+downloaded); the prompts are ``SyntheticLM`` batch 0. The dense family only
+(qwen2, qwen3, chatglm3); other families raise ``NotImplementedError``.
+Runs on ``torch_device`` (default ``cuda``; without CUDA it raises unless
+given ``cpu``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..data import SyntheticLM
+from ..device import resolve_device
+from ..models import build
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, batch: int, prompt_len: int, gen: int,
+          reduced: bool = True, greedy: bool = True, seed: int = 0,
+          torch_device: str | torch.device = "cuda"):
+    """Serve ``batch`` synthetic prompts of ``prompt_len`` tokens and
+    generate ``gen`` tokens each by greedy argmax (``greedy`` is the
+    reference's flag; decoding is greedy either way). Returns the generated
+    tokens (batch, gen), prefill and decode seconds (host clock around work
+    that ends in a synchronize) and decode tokens per second."""
+    dev = resolve_device(torch_device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=prompt_len,
+                     global_batch=batch)
+    prompts, _ = ds.batch_at(0)
+    prompts = torch.as_tensor(prompts, device=dev)
+    max_len = prompt_len + gen
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_len=max_len)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+
+        tok = torch.argmax(logits, -1)
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(logits, -1)
+            out.append(tok)
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+    gen_tokens = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+    return {"generated": gen_tokens, "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--full-size", action="store_true")
+    ap.add_argument("--torch-device", default="cuda",
+                    help="torch device to run on (default cuda; pass cpu "
+                         "to serve on the host)")
+    args = ap.parse_args(argv)
+    out = serve(args.arch, args.batch, args.prompt_len, args.gen,
+                reduced=not args.full_size, torch_device=args.torch_device)
+    print(f"prefill {out['prefill_s']:.2f}s, decode {out['decode_s']:.2f}s "
+          f"({out['tok_per_s']:.1f} tok/s), sample: "
+          f"{np.asarray(out['generated'][0][:16])}")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,11 @@
     PYTHONPATH=src python -m repro_torch.launch.solve --solver chip-lns \
         --workload maxcut --spins 128 --problems 1 --runs 16
 
+    # the mega-fabric: a 2000-spin Gset graph checkerboarded over 8 virtual
+    # dies, one engine dispatch per color phase
+    PYTHONPATH=src python -m repro_torch.launch.solve --solver fabric-jax \
+        --workload gset --spins 2000 --mesh-devices 8 --no-oracle
+
     # NP-hard zoo (coloring / mis / vertex-cover / 3sat / tsp): the best
     # configuration is decoded back to native form and verified
     PYTHONPATH=src python -m repro_torch.launch.solve --solver tabu-jax \
@@ -37,8 +42,8 @@ it: the only sane setting at Gset scale) and refreshed by the batched
 tabu-jax tier above the brute-force range. Everything runs on
 ``--torch-device`` (default ``cuda``; without CUDA the CLI raises unless
 given ``--torch-device cpu``). Workloads: ``random-qubo``, ``maxcut``,
-``gset`` and the zoo; the reference's ``--mesh-devices`` (the fabric) is
-not ported yet and raises.
+``gset`` and the zoo. ``--mesh-devices K`` gives fabric-jax K virtual dies
+on that one device (no forced-device flag, unlike the reference).
 """
 from __future__ import annotations
 
@@ -49,17 +54,8 @@ import torch
 
 from ..api import ProblemSuite, get_solver, list_solvers, solve_suite
 
-#: the reference's solvers and options that the port does not have yet, by
-#: the ROADMAP queue-1 step that ports them
-_NOT_YET_PORTED = {"fabric-jax": 3}
-
 #: --workload values that are plain Problem constructors, not zoo entries.
 _BUILTIN = ("random-qubo", "maxcut", "gset")
-
-
-def _not_yet_ported(what: str, step: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to repro_torch "
-                               f"(ROADMAP queue 1 step {step})")
 
 
 def build_suite(workload: str, n: int, density: float, problems: int,
@@ -104,12 +100,7 @@ def solve(n_spins: int, density: float, problems: int, runs: int,
     ``(report, suite)`` — the oracle-attached
     :class:`repro_torch.api.SolveReport` plus the suite it solved.
     ``chips`` / ``mismatch_sigma`` / ``tau_leak_spread`` size the ode-jax
-    virtual-chip fleet."""
-    if mesh_devices is not None:
-        raise _not_yet_ported("--mesh-devices (the fabric-jax mesh)",
-                              _NOT_YET_PORTED["fabric-jax"])
-    if solver in _NOT_YET_PORTED:
-        raise _not_yet_ported(f"solver {solver!r}", _NOT_YET_PORTED[solver])
+    virtual-chip fleet; ``mesh_devices`` the fabric-jax virtual dies."""
     suite = build_suite(workload, n_spins, density, problems, seed,
                         degree=degree)
     opts = {}
@@ -118,6 +109,8 @@ def solve(n_spins: int, density: float, problems: int, runs: int,
                     variant="perturbation" if perturbation else "gd")
     elif solver == "chip-lns":
         opts = dict(backend=backend)
+    elif solver == "fabric-jax":
+        opts = dict(backend=backend, mesh_devices=mesh_devices)
     elif solver == "ode-jax":
         from ..physics import VariationModel
         opts = dict(variant="perturbation" if perturbation else "gd",
@@ -152,6 +145,26 @@ def native_lines(workload: str, suite: ProblemSuite, report) -> list[str]:
         res = wl.verify(p, wl.decode(p, report.best_sigma[i]))
         out.append(f"[{workload} #{i}] feasible={res.feasible} "
                    f"objective={res.objective:g} ({wl.sense})")
+    return out
+
+
+def fabric_lines(report) -> list[str]:
+    """The fabric ledger of a fabric-jax solve: dies, colors, dispatches
+    and field exchanges, then each color phase's occupancy per problem
+    (none for other solvers)."""
+    fab = report.meta.get("fabric")
+    if not fab:
+        return []
+    out = [f"[fabric] {fab['mesh_devices']} dies, {fab['n_colors']} colors "
+           f"x {report.meta['outer_sweeps']} sweeps = {fab['dispatches']} "
+           f"dispatches, {fab['field_exchanges']} field exchanges"]
+    for occ in fab["occupancy"]:
+        per_p = [f"p{k[1:]}:{v['tiles']}t/{v['dies_busy']}d"
+                 f"(+{v['pad_tiles']}pad)"
+                 for k, v in occ.items() if k != "color"]
+        out.append(f"[fabric]   color {occ['color']}: peak "
+                   f"{fab['color_peaks'][occ['color']]} tiles/die — "
+                   + " ".join(per_p))
     return out
 
 
@@ -217,7 +230,8 @@ def main(argv=None):
                     help="[ode-jax] lognormal spread of the gate-leak "
                          "time constant across chips")
     ap.add_argument("--mesh-devices", type=int, default=None,
-                    help="[fabric-jax] not yet ported")
+                    help="[fabric-jax] virtual dies in the fabric (default "
+                         "1), all on --torch-device")
     args = ap.parse_args(argv)
 
     if args.list_solvers:
@@ -226,9 +240,8 @@ def main(argv=None):
             print(f"{name:12s} device={caps.device:5s} "
                   f"exact={caps.exact} needs_oracle={caps.needs_oracle}{lim}")
         return
-    if args.solver not in _NOT_YET_PORTED:
-        # fail fast on unknown names and on a missing CUDA device
-        get_solver(args.solver, torch_device=args.torch_device)
+    # fail fast on unknown names and on a missing CUDA device
+    get_solver(args.solver, torch_device=args.torch_device)
     report, suite = solve(
         args.spins, args.density, args.problems, args.runs,
         solver=args.solver, backend=args.backend,
@@ -243,6 +256,8 @@ def main(argv=None):
     if plan:
         print(f"[engine] path={plan['path']} block_r={plan['block_r']} "
               f"j_dtype={plan['j_dtype']} ({plan['reason']})")
+    for line in fabric_lines(report):
+        print(line)
     print(report.summary())
     if args.workload not in _BUILTIN:
         for line in native_lines(args.workload, suite, report):

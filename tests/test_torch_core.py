@@ -400,6 +400,23 @@ def test_engine_scan_and_fused_agree_on_unit_schedule(tmp_path):
     assert np.array_equal(np.asarray(ref.energy), outs[1].energy.numpy())
 
 
+@pytest.mark.parametrize("path", ["scan", "fused"])
+@pytest.mark.parametrize("dev_kw,pert,expect", [
+    ({"tau_leak_sweeps": float("inf")}, r_pert.NOMINAL, "int8"),
+    ({}, r_pert.DEFAULT_PERTURBATION, "float32"),
+])
+def test_engine_run_reports_the_variant_it_planned(tmp_path, path, dev_kw,
+                                                   pert, expect):
+    _, _, tdev, tpert = _pair({"n_spins": 16, "anneal_sweeps": 0.25,
+                               **dev_kw}, pert)
+    J, v0 = _inputs(16, 2, 4, seed=3)
+    eng = AnnealEngine(tdev, tpert, path=path, torch_device=CPU,
+                       cache_path=str(tmp_path / "c.json"))
+    res = eng.run(J, v0)
+    assert res.j_dtype == eng.plan(2, 4, 16,
+                                   J=torch.as_tensor(J)).j_dtype == expect
+
+
 def test_machine_baselines_and_backends():
     m = IsingMachine(torch_device=CPU)
     gd = m.gradient_descent_baseline()

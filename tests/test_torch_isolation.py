@@ -28,7 +28,9 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.solvers, repro_torch.workloads, "
             "repro_torch.launch.solve, repro_torch.rng, repro_torch.physics, "
             "repro_torch.serve, repro_torch.distributed.fault_tolerance, "
-            "repro_torch.distributed.elastic, repro_torch.launch.serve_ising; "
+            "repro_torch.distributed.elastic, repro_torch.launch.serve_ising, "
+            "repro_torch.distributed, repro_torch.configs, repro_torch.models, "
+            "repro_torch.data, repro_torch.launch.serve_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -66,6 +68,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                    ResiliencePolicy)
     from repro_torch.core import DeviceModel
     from repro_torch.core.perturbation import DEFAULT_PERTURBATION
+    from repro_torch.distributed import fabric_mesh
+    from repro_torch.launch import serve_lm
     _no_cuda(monkeypatch)
     suite = ProblemSuite.random(n=8, density=0.5, num_problems=1, seed=0)
     J = suite[0].J_levels
@@ -106,7 +110,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: IsingFleet(solver="sa-numpy"),
                  lambda: FlushExecutor(ResiliencePolicy(), primary=None,
                                        solver_name="x", runs=1, seed=0,
-                                       block=16)):
+                                       block=16),
+                 lambda: fabric_mesh(8),
+                 lambda: get_solver("fabric-jax"),
+                 lambda: solve_suite(suite, solver="fabric-jax", runs=2),
+                 lambda: solve(130, 0.5, 1, 2, solver="fabric-jax",
+                               workload="gset", mesh_devices=8,
+                               oracle=False),
+                 lambda: serve_lm.serve("qwen3-0.6b", 1, 4, 2)):
         with pytest.raises(RuntimeError, match="torch_device='cpu'"):
             call()
     # asked for by name, the CPU works
@@ -116,10 +127,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     rep = solve_suite(suite, solver="sb-jax", runs=2, budget=0.05,
                       torch_device="cpu", oracle=False)
     assert rep.meta["torch_device"] == "cpu"
-    for name in ("sa-jax", "pt-jax", "tabu-jax"):
+    for name in ("sa-jax", "pt-jax", "tabu-jax", "fabric-jax"):
         rep = solve_suite(suite, solver=name, runs=2, budget=0.05,
                           torch_device="cpu", oracle=False)
         assert rep.meta["torch_device"] == "cpu", name
+    assert fabric_mesh(8, torch_device="cpu").torch_device.type == "cpu"
 
 
 def test_solve_cli_raises_without_cuda_unless_asked_for_the_cpu():

@@ -280,12 +280,19 @@ def test_cli_main_prints_plan_summary_and_cuts(capsys, tmp_path,
         assert name in listed
 
 
-@pytest.mark.parametrize("kwargs,step", [
-    ({"mesh_devices": 8}, 3), ({"solver": "fabric-jax"}, 3)])
-def test_cli_refuses_what_is_not_ported_yet(kwargs, step):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1 step {step}"):
-        cli.solve(12, 0.5, 1, 4, oracle=False, **{**CPU, **kwargs})
+@pytest.mark.parametrize("argv,dies", [
+    (["--mesh-devices", "8"], 8), ([], 1)])
+def test_cli_runs_the_fabric(capsys, argv, dies):
+    """``--solver fabric-jax`` (with or without ``--mesh-devices``) solves
+    and prints the reference's ``[fabric]`` ledger lines."""
+    cli.main(["--solver", "fabric-jax", "--workload", "gset", "--spins",
+              "130", "--problems", "1", "--runs", "2", "--budget", "0.1",
+              "--no-oracle", "--torch-device", "cpu", *argv])
+    out = capsys.readouterr().out
+    assert (f"[fabric] {dies} dies, 2 colors x 1 sweeps = 2 dispatches, "
+            "2 field exchanges") in out
+    assert "[fabric]   color 0: peak" in out and "[fabric-jax]" in out
+    assert "[gset #0] N=130 cut weight=" in out
 
 
 @pytest.mark.parametrize("kwargs", [
