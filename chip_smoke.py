@@ -112,6 +112,21 @@ exits nonzero:
                 peak memory; finite logits and the top-1 agreement of
                 bfloat16 with float32 on the same weights; the serve_lm CLI
                 at full size in a subprocess.
+ 16. lm_families — the other model families: each one's reduced() config
+                in float32 on the card against the CPU with the same
+                weights (granite-moe-3b, olmoe-1b-7b, llava-next-mistral-7b,
+                hubert-xlarge, zamba2-7b at 5 layers, rwkv6-3b; outputs
+                within 1e-4, 8 greedy tokens equal where the family
+                decodes, MoE's first-layer routing equal); olmoe-1b-7b at
+                full width and depth (16 layers, d_model 2048, 64 experts,
+                top-8, bfloat16) through serve_lm.serve at batch 4, prompt
+                64, gen 32 with its times and peak memory, bf16's top-1
+                agreement with f32 on the same weights, the serve_lm CLI
+                at full size; one full-size pass of zamba2-7b and rwkv6-3b
+                (serve_lm.serve), llava-next-mistral-7b (576 vision
+                embeddings over a 640-token prompt, batch 2, 8 decode
+                steps) and hubert-xlarge ((2, 500, 1280) frames, bf16 and
+                f32), each with its wall and peak memory.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -2171,16 +2186,34 @@ LM_ARCH = "qwen3-0.6b"
 LM_SERVE = dict(batch=4, prompt_len=64, gen=32)
 
 
-def lm_greedy(model, params, prompts, gen):
-    """Prefill logits and ``gen`` greedy tokens of ``prompts``."""
+def lm_run(model, params, batch, gen):
+    """What the family serves: prefill logits (dense / moe / vlm), the last
+    warm-up logits after the prompt went through ``decode_step`` token by
+    token (hybrid / rwkv), or the hiddens (encoder); then ``gen`` greedy
+    tokens (None for the encoder)."""
     import torch
-    logits, cache = model.prefill(params, {"tokens": prompts},
-                                  max_len=prompts.shape[1] + gen)
+    tokens = batch.get("tokens")
+    if model.decode_step is None:
+        return model.forward(params, batch), None
+    max_len = tokens.shape[1] + gen
+    if model.prefill is not None:
+        logits, cache = model.prefill(params, batch, max_len=max_len)
+    else:
+        cache = model.init_cache(tokens.shape[0], max_len,
+                                 torch_device=tokens.device)
+        for t in range(tokens.shape[1]):
+            logits, cache = model.decode_step(params, cache, tokens[:, t])
     first, toks = logits, []
     for _ in range(gen):
         toks.append(torch.argmax(logits, -1))
         logits, cache = model.decode_step(params, cache, toks[-1])
     return first, torch.stack(toks, dim=1)
+
+
+def arrays(tree):
+    """A parameter tree of CPU tensors as numpy arrays."""
+    return {k: arrays(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
 
 
 def top2_gap(logits):
@@ -2199,7 +2232,7 @@ def phase_lm():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.convert import transformer_params_from_arrays
+    from repro_torch.convert import lm_params_from_arrays
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import serve_lm
     from repro_torch.models import build
@@ -2208,16 +2241,12 @@ def phase_lm():
     model = build(cfg)
     cpu = model.init(torch.Generator().manual_seed(0))
 
-    def arrays(tree):
-        return {k: arrays(v) if isinstance(v, dict) else v.numpy()
-                for k, v in tree.items()}
-    card = transformer_params_from_arrays(arrays(cpu), cfg,
-                                          torch_device="cuda")
+    card = lm_params_from_arrays(arrays(cpu), cfg, torch_device="cuda")
     prompts, _ = SyntheticLM(cfg.vocab_size, 16, 2).batch_at(0)
     prompts = torch.as_tensor(prompts)
     with torch.inference_mode():
-        lg_cpu, tok_cpu = lm_greedy(model, cpu, prompts, 8)
-        lg_card, tok_card = lm_greedy(model, card, prompts.cuda(), 8)
+        lg_cpu, tok_cpu = lm_run(model, cpu, {"tokens": prompts}, 8)
+        lg_card, tok_card = lm_run(model, card, {"tokens": prompts.cuda()}, 8)
     err = float((lg_card.cpu() - lg_cpu).abs().max())
     same = bool(torch.equal(tok_card.cpu(), tok_cpu))
     emit({"phase": "lm", "card_vs_cpu": {
@@ -2255,8 +2284,9 @@ def phase_lm():
             h = build(c).forward(params, {"tokens": prompts})
             head = params["head"].to(h.dtype)
             logits[dtype] = (h @ head).float()[..., :full.vocab_size]
-        _, toks32 = lm_greedy(build(dataclasses.replace(
-            full, dtype="float32")), params, prompts, LM_SERVE["gen"])
+        _, toks32 = lm_run(build(dataclasses.replace(
+            full, dtype="float32")), params, {"tokens": prompts},
+            LM_SERVE["gen"])
     finite = bool(torch.isfinite(logits["bfloat16"]).all())
     agree = float((logits["bfloat16"].argmax(-1) ==
                    logits["float32"].argmax(-1)).float().mean())
@@ -2287,9 +2317,281 @@ def phase_lm():
           f"serve_lm CLI exited {proc.returncode}")
 
 
+#: the families past the dense one; zamba2 reduced to 5 layers, so its
+#: reduced model has two groups and a tail layer
+LM_FAMILIES = ("granite-moe-3b-a800m", "olmoe-1b-7b",
+               "llava-next-mistral-7b", "hubert-xlarge", "zamba2-7b",
+               "rwkv6-3b")
+LM_MOE_ARCH = "olmoe-1b-7b"
+LLAVA_PASS = dict(batch=2, prompt_len=640, gen=8)
+HUBERT_FRAMES = (2, 500)
+
+
+def family_cfg(arch, full=False):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if full:
+        return cfg
+    return cfg.reduced(n_layers=5) if cfg.family == "hybrid" else \
+        cfg.reduced()
+
+
+def family_batch(cfg, B, S, dev, seed=0):
+    """Seeded inputs on ``dev``: tokens; frame embeddings for the encoder;
+    vision embeddings at the token embeddings' scale for the vlm."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "encoder":
+        return {"embeds": torch.randn((B, S, cfg.d_model),
+                                      generator=gen).to(dev)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen).to(dev)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = (torch.randn(
+            (B, cfg.n_vision_tokens, cfg.d_model), generator=gen)
+            * 0.02).to(dev)
+    return batch
+
+
+@contextlib.contextmanager
+def first_routing(seen):
+    """Record the first MoE layer's routing (``moe.route``'s first call)."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        if not seen:
+            seen.append({k: out[k].cpu() for k in ("keep", "idx", "dest")})
+        return out
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def free_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_families():
+    """The other model families of the LM path (no kernel of their own:
+    the reference computes them in plain jnp). (1) Each family's reduced
+    config in float32 on the card against the CPU with the same weights
+    (carried by ``convert``; TF32 off for matmuls and cuDNN): outputs
+    within 1e-4, 8 greedy tokens equal where the family decodes, and for
+    MoE the first layer's keep mask, expert assignment and slots equal.
+    (2) olmoe-1b-7b at full width and depth through ``serve_lm.serve``
+    (bf16 over f32 weights, batch 4, prompt 64, gen 32): times, peak
+    memory, finite logits; on the same weights bf16's top-1 agreement with
+    f32; the serve_lm CLI at full size. (3) One full-size pass of each
+    other family: zamba2-7b and rwkv6-3b through ``serve_lm.serve`` (the
+    prompt warmed token by token), llava-next-mistral-7b's prefill of 576
+    vision embeddings spliced over a 640-token prompt at batch 2 and 8
+    decode steps, hubert-xlarge's forward on (2, 500, 1280) frames in bf16
+    and f32; each with its wall and peak memory."""
+    import torch
+
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.allow_tf32, "TF32 must be off here")
+    for arch in LM_FAMILIES:
+        cfg = family_cfg(arch)
+        model = build(cfg)
+        cpu = model.init(torch.Generator().manual_seed(0))
+        card = lm_params_from_arrays(arrays(cpu), cfg, torch_device="cuda")
+        B, S = 2, 16
+        seen_cpu, seen_card = [], []
+        with torch.inference_mode():
+            with first_routing(seen_cpu):
+                out_cpu, tok_cpu = lm_run(
+                    model, cpu, family_batch(cfg, B, S, "cpu"), 8)
+            with first_routing(seen_card):
+                out_card, tok_card = lm_run(
+                    model, card, family_batch(cfg, B, S, "cuda"), 8)
+        err = float((out_card.float().cpu() - out_cpu.float()).abs().max())
+        row = {"arch": arch, "family": cfg.family, "config":
+               f"reduced(n_layers={cfg.n_layers}), float32",
+               "input": [B, S], "max_abs_err": err,
+               "greedy_tokens_equal": (None if tok_cpu is None else bool(
+                   torch.equal(tok_card.cpu(), tok_cpu)))}
+        if tok_cpu is not None:
+            row["min_top2_gap"] = top2_gap(out_cpu)
+        if cfg.n_experts:
+            row["first_layer_routing_equal"] = {
+                k: bool(torch.equal(seen_card[0][k], seen_cpu[0][k]))
+                for k in ("keep", "idx", "dest")}
+            row["first_layer_dropped"] = int((~seen_cpu[0]["keep"]).sum())
+        emit({"phase": "lm_families", "card_vs_cpu": row})
+        check(err <= 1e-4, f"reduced {arch}: card output off by {err}")
+        check(tok_cpu is None or row["greedy_tokens_equal"],
+              f"reduced {arch}: greedy tokens differ card vs CPU")
+        check(not cfg.n_experts or all(
+            row["first_layer_routing_equal"].values()),
+            f"reduced {arch}: first-layer routing differs card vs CPU")
+    del cpu, card
+    free_cuda()
+
+    # olmoe-1b-7b at full width and depth, served
+    full = family_cfg(LM_MOE_ARCH, full=True)
+    torch.cuda.reset_peak_memory_stats()
+    out = serve_lm.serve(LM_MOE_ARCH, reduced=False, torch_device="cuda",
+                         **LM_SERVE)
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "lm_families", "serve": {
+        "arch": LM_MOE_ARCH, "n_layers": full.n_layers,
+        "d_model": full.d_model, "n_experts": full.n_experts,
+        "top_k": full.top_k, "vocab": full.vocab_size, "dtype": full.dtype,
+        **LM_SERVE, "prefill_s": out["prefill_s"],
+        "decode_s": out["decode_s"], "tok_per_s": out["tok_per_s"],
+        "peak_allocated_gib": peak / 2**30,
+        "logits_finite": out["logits_finite"],
+        "sample": out["generated"][0][:16].tolist()}})
+    check(out["generated"].shape == (LM_SERVE["batch"], LM_SERVE["gen"]),
+          f"serve returned {out['generated'].shape}")
+    check(out["logits_finite"], f"{LM_MOE_ARCH}: non-finite logits served")
+
+    # the served weights again (serve draws them from seed 0 on the card),
+    # run in bfloat16 and in float32 over the same prompts
+    params = build(full).init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _tensors(params))
+    prompts, _ = SyntheticLM(full.vocab_size, LM_SERVE["prompt_len"],
+                             LM_SERVE["batch"]).batch_at(0)
+    prompts = torch.as_tensor(prompts, device="cuda")
+    logits = {}
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(full, dtype=dtype)
+            h = build(c).forward(params, {"tokens": prompts})
+            logits[dtype] = (h @ params["head"].to(h.dtype)).float()[
+                ..., :full.vocab_size]
+    finite = bool(torch.isfinite(logits["bfloat16"]).all())
+    agree = float((logits["bfloat16"].argmax(-1) ==
+                   logits["float32"].argmax(-1)).float().mean())
+    emit({"phase": "lm_families", "bf16_vs_f32": {
+        "arch": LM_MOE_ARCH, "params": n_params,
+        "param_gib": 4 * n_params / 2**30,
+        "positions": int(logits["float32"].shape[0] *
+                         logits["float32"].shape[1]),
+        "logits_finite": finite, "top1_agreement": agree,
+        "max_abs_logit_diff": float((logits["bfloat16"] -
+                                     logits["float32"]).abs().max())}})
+    check(finite, f"{LM_MOE_ARCH} full size: non-finite bfloat16 logits")
+    del params, logits, h
+    free_cuda()
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+           LM_MOE_ARCH, "--full-size"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    emit({"phase": "lm_families", "cli": " ".join(cmd[1:]),
+          "rc": proc.returncode, "cli_s": time.perf_counter() - t0,
+          "stdout_tail": proc.stdout.strip().splitlines()[-2:],
+          "stderr_tail": proc.stderr.strip().splitlines()[-5:]})
+    check(proc.returncode == 0 and "tok/s" in proc.stdout,
+          f"serve_lm CLI for {LM_MOE_ARCH} exited {proc.returncode}")
+
+    # one full-size pass of every other family
+    for arch in ("zamba2-7b", "rwkv6-3b"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = serve_lm.serve(arch, reduced=False, torch_device="cuda",
+                             **LM_SERVE)
+        wall = time.perf_counter() - t0
+        emit({"phase": "lm_families", "full_pass": {
+            "arch": arch, "path": "serve_lm.serve", **LM_SERVE,
+            "wall_s": wall, "warmup_s": out["prefill_s"],
+            "decode_s": out["decode_s"], "tok_per_s": out["tok_per_s"],
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "logits_finite": out["logits_finite"]}})
+        check(out["logits_finite"], f"{arch} full size: non-finite logits")
+        free_cuda()
+
+    cfg = family_cfg("llava-next-mistral-7b", full=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = family_batch(cfg, LLAVA_PASS["batch"], LLAVA_PASS["prompt_len"],
+                         "cuda")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(
+            params, batch,
+            max_len=LLAVA_PASS["prompt_len"] + LLAVA_PASS["gen"])
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t1
+        finite = torch.isfinite(logits).all()
+        tok = torch.argmax(logits, -1)
+        for _ in range(LLAVA_PASS["gen"]):
+            logits, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(logits, -1)
+            finite &= torch.isfinite(logits).all()
+        torch.cuda.synchronize()
+    emit({"phase": "lm_families", "full_pass": {
+        "arch": cfg.name, "path": "prefill + decode_step", **LLAVA_PASS,
+        "n_vision_tokens": cfg.n_vision_tokens,
+        "wall_s": time.perf_counter() - t0, "prefill_s": t_prefill,
+        "cache_pos": int(cache["pos"]),
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "logits_finite": bool(finite)}})
+    check(bool(finite), "llava full size: non-finite logits")
+    check(int(cache["pos"]) == LLAVA_PASS["prompt_len"] + LLAVA_PASS["gen"],
+          "llava: decode positions do not continue from the prompt")
+    del params, cache, model
+    free_cuda()
+
+    cfg = family_cfg("hubert-xlarge", full=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = family_batch(cfg, *HUBERT_FRAMES, "cuda")
+    hid, walls = {}, {}
+    with torch.inference_mode():
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            hid[dtype] = build(c).forward(params, batch).float()
+            torch.cuda.synchronize()
+            walls[dtype] = time.perf_counter() - t1
+    finite = all(bool(torch.isfinite(h).all()) for h in hid.values())
+    rel = float((hid["bfloat16"] - hid["float32"]).abs().max()
+                / hid["float32"].abs().max())
+    emit({"phase": "lm_families", "full_pass": {
+        "arch": cfg.name, "path": "forward", "frames": list(HUBERT_FRAMES),
+        "d_model": cfg.d_model, "wall_s": time.perf_counter() - t0,
+        "forward_s": walls, "hiddens_finite": finite,
+        "bf16_vs_f32_max_rel_diff": rel,
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}})
+    check(finite, "hubert full size: non-finite hiddens")
+    del params, hid
+    free_cuda()
+
+
+def _tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
+
+
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
           "gset", "sb_timing", "search", "zoo", "physics", "serve",
-          "fabric", "lm")
+          "fabric", "lm", "lm_families")
 
 
 def main(argv=None) -> int:
@@ -2335,6 +2637,7 @@ def main(argv=None) -> int:
             "serve": phase_serve,
             "fabric": phase_fabric,
             "lm": phase_lm,
+            "lm_families": phase_lm_families,
         }
         out = {name: run[name]() for name in PHASES if name in phases}
     emit({"phase": "end", "total_s": time.perf_counter() - START})

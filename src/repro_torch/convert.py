@@ -156,15 +156,26 @@ def tabu_draws_from_arrays(s0, kick,
     return out
 
 
-def transformer_params_from_arrays(tree, cfg,
-                                   torch_device: str | torch.device = "cuda"):
-    """The reference's transformer parameter tree (nested dicts of numpy
-    arrays, blocks stacked as (L, ...) leaves: ``jax.tree.map(np.asarray,
+def lm_params_from_arrays(tree, cfg,
+                          torch_device: str | torch.device = "cuda"):
+    """The reference's LM parameter tree (nested dicts of numpy arrays,
+    blocks stacked as (L, ...) leaves: ``jax.tree.map(np.asarray,
     params)``) as the port's float32 parameters on ``torch_device``, for
-    ``repro_torch.models.transformer`` (dense family). The two trees have
-    one layout, so the leaves are copied as they are."""
-    from .models.transformer import check_family, padded_vocab
-    check_family(cfg)
+    the model ``models.build(cfg)`` makes. The two trees have one layout,
+    so the leaves are copied as they are; the shapes that tell one
+    configuration from another are checked against ``cfg``:
+    * every family: the embedding (the padded vocabulary for the
+      transformer families), blocks stacked over ``cfg.n_layers``;
+    * moe: router (L, D, E), expert stacks wi / wg (L, E, D, F) and
+      wo (L, E, F, D);
+    * encoder: ``pos_conv`` w (128, D/16, D);
+    * hybrid: ONE shared attention + MLP block (no layer axis), so 81
+      layers at attn_every 6 are 13 groups of 6 and 3 tail layers;
+    * rwkv: the bonus u (L, D/N, N) of N-wide heads.
+    """
+    from .models import transformer
+    if cfg.family not in (*transformer.FAMILIES, "hybrid", "rwkv"):
+        raise ValueError(f"no model family {cfg.family!r}")
     dev = resolve_device(torch_device)
 
     def leaf(a):
@@ -174,14 +185,36 @@ def transformer_params_from_arrays(tree, cfg,
         return {k: walk(v) if isinstance(v, dict) else leaf(v)
                 for k, v in t.items()}
     params = walk(tree)
-    want = (padded_vocab(cfg), cfg.d_model)
-    if tuple(params["embed"].shape) != want:
-        raise ValueError(f"embed is {tuple(params['embed'].shape)}, "
-                         f"{cfg.name} needs {want}")
+    L, D = cfg.n_layers, cfg.d_model
+    vocab = (transformer.padded_vocab(cfg)
+             if cfg.family in transformer.FAMILIES else cfg.vocab_size)
+    want = {"embed": (params["embed"], (vocab, D))}
+    if cfg.family == "moe":
+        E, F = cfg.n_experts, cfg.d_ff
+        ffn = params["blocks"]["ffn"]
+        want.update({"blocks.ffn.router": (ffn["router"], (L, D, E)),
+                     "blocks.ffn.wi": (ffn["wi"], (L, E, D, F)),
+                     "blocks.ffn.wg": (ffn["wg"], (L, E, D, F)),
+                     "blocks.ffn.wo": (ffn["wo"], (L, E, F, D))})
+    if cfg.family == "encoder":
+        want["pos_conv.w"] = (params["pos_conv"]["w"],
+                              (transformer.POS_CONV_KERNEL,
+                               D // transformer.POS_CONV_GROUPS, D))
+    if cfg.family == "hybrid":
+        want["shared.attn.wq"] = (params["shared"]["attn"]["wq"],
+                                  (D, cfg.padded_heads, cfg.head_dim))
+    if cfg.family == "rwkv":
+        n = cfg.rwkv_head_dim
+        want["blocks.tmix.u"] = (params["blocks"]["tmix"]["u"],
+                                 (L, D // n, n))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, {cfg.name} "
+                             f"needs {shape}")
     layers = {tuple(t.shape[:1]) for t in _leaves(params["blocks"])}
-    if layers != {(cfg.n_layers,)}:
+    if layers != {(L,)}:
         raise ValueError(f"block leaves stack {sorted(layers)} layers, "
-                         f"{cfg.name} has {cfg.n_layers}")
+                         f"{cfg.name} has {L}")
     return params
 
 

@@ -1,0 +1,176 @@
+"""Mamba-2 (SSD) block, chunked parallel scan (the reference's
+``models.mamba2``).
+
+Per head h (scalar decay a_t = exp(dt_t * A_h), A_h < 0):
+    h_t = a_t * h_{t-1} + dt_t * x_t (outer) B_t        state (dh, ds)
+    y_t = h_t @ C_t + D_h * x_t
+Chunked form (chunk length Lc): within a chunk the pairwise decay matrix
+M_tj = exp(cum_t - cum_j) is a (Lc, Lc) scalar-per-head matrix masked to
+j <= t, so the intra-chunk part is one masked product per head; the state
+crosses chunks in a plain loop (the reference's ``lax.scan``). The last
+chunk is padded with zeros. Everything after the input projection runs in
+float32, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from .common import dense_init, rms_norm
+
+
+def init_mamba2(gen: torch.Generator, d_model: int, *, expand: int = 2,
+                head_dim: int = 64, d_state: int = 64, conv_kernel: int = 4):
+    d_inner = expand * d_model
+    n_heads = d_inner // head_dim
+    conv_dim = d_inner + 2 * d_state
+    dev = gen.device
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+    return {
+        # order: [z (d_inner) | xBC (conv_dim) | dt (n_heads)]
+        "in_proj": dense_init(gen, d_model, d_inner + conv_dim + n_heads),
+        "conv_w": torch.randn((conv_kernel, conv_dim), generator=gen,
+                              device=dev, dtype=torch.float32)
+        * (conv_kernel ** -0.5),
+        "conv_b": full((conv_dim,), 0.0),
+        "A_log": full((n_heads,), 0.0),          # A = -exp(A_log) = -1
+        "D": full((n_heads,), 1.0),
+        "dt_bias": full((n_heads,), -2.0),       # softplus ~ 0.12
+        "norm_w": full((d_inner,), 1.0),
+        "out_proj": dense_init(gen, d_inner, d_model),
+    }
+
+
+def _split_proj(proj, d_inner, d_state, n_heads):
+    z = proj[..., :d_inner]
+    xbc = proj[..., d_inner:-n_heads]
+    dt = proj[..., -n_heads:]
+    return z, dt, xbc
+
+
+def _softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0), with no linear threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _causal_conv(xbc, w, b):
+    """Depthwise causal conv, kernel K: (B, S, C) -> (B, S, C), as K
+    shifted multiply-adds in the reference's order (no cuDNN)."""
+    k, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = 0
+    for i in range(k):
+        out = out + pad[:, i:i + s, :] * w[i][None, None, :]
+    return F.silu(out + b[None, None, :])
+
+
+def apply_mamba2(p, x, *, head_dim: int = 64, d_state: int = 64,
+                 chunk: int = 128):
+    """x (B, S, D) -> (y (B, S, D) in x's dtype, final state (B, H, dh, ds)
+    float32)."""
+    btype = x.dtype
+    bsz, s, _ = x.shape
+    d_inner = p["norm_w"].shape[0]
+    n_heads = p["A_log"].shape[0]
+
+    proj = x @ p["in_proj"].to(btype)
+    z, dt_raw, xbc = _split_proj(proj, d_inner, d_state, n_heads)
+    xbc = _causal_conv(xbc.float(), p["conv_w"], p["conv_b"])
+    x_in = xbc[..., :d_inner]
+    B = xbc[..., d_inner:d_inner + d_state]
+    C = xbc[..., d_inner + d_state:]
+
+    dt = _softplus(dt_raw.float() + p["dt_bias"])                  # (B,S,H)
+    A = -torch.exp(p["A_log"])                                     # (H,)
+    loga = dt * A[None, None, :]                                   # <= 0
+
+    lc = min(chunk, s)
+    nc = -(-s // lc)
+    pad = nc * lc - s
+
+    def cpad(a):
+        return F.pad(a, (0, 0, 0, pad))
+    xh = cpad(x_in).reshape(bsz, nc, lc, n_heads, head_dim)
+    Bc = cpad(B).reshape(bsz, nc, lc, d_state)
+    Cc = cpad(C).reshape(bsz, nc, lc, d_state)
+    dtc = cpad(dt).reshape(bsz, nc, lc, n_heads)
+    cum = torch.cumsum(cpad(loga).reshape(bsz, nc, lc, n_heads), dim=2)
+    mask = torch.tril(torch.ones((lc, lc), dtype=torch.bool,
+                                 device=x.device))
+
+    h = torch.zeros((bsz, n_heads, head_dim, d_state), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for c in range(nc):
+        xk, Bk, Ck, dtk, cumk = (xh[:, c], Bc[:, c], Cc[:, c], dtc[:, c],
+                                 cum[:, c])
+        # intra-chunk: S_tj = (C_t . B_j) * exp(cum_t - cum_j) * dt_j, j<=t;
+        # above the diagonal the exponent is positive and may overflow to
+        # inf, so it is masked by selection (inf * 0 would be NaN)
+        CB = torch.einsum("bts,bjs->btj", Ck, Bk)                 # (B,Lc,Lc)
+        M = torch.exp(cumk[:, :, None, :] - cumk[:, None, :, :])  # (B,t,j,H)
+        M = torch.where(mask[None, :, :, None], M, 0.0)
+        S = CB[..., None] * M * dtk[:, None, :, :]
+        y_intra = torch.einsum("btjh,bjhd->bthd", S, xk)
+        # inter-chunk: y_t += exp(cum_t) * C_t @ h
+        y_inter = torch.einsum("bts,bhds,bth->bthd", Ck, h, torch.exp(cumk))
+        # state: h' = exp(cum_L) h + sum_j exp(cum_L - cum_j) dt_j x_j B_j
+        decay_tot = torch.exp(cumk[:, -1, :])                      # (B,H)
+        w_j = torch.exp(cumk[:, -1, None, :] - cumk) * dtk         # (B,Lc,H)
+        dB = torch.einsum("bjh,bjhd,bjs->bhds", w_j, xk, Bk)
+        h = h * decay_tot[..., None, None] + dB
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(bsz, nc * lc, n_heads, head_dim)[:, :s]
+    y = y + p["D"][None, None, :, None] * xh.reshape(
+        bsz, nc * lc, n_heads, head_dim)[:, :s]
+    y = y.reshape(bsz, s, d_inner)
+    # gated RMSNorm + out proj
+    y = rms_norm(y * F.silu(z.float()), p["norm_w"])
+    return y.to(btype) @ p["out_proj"].to(btype), h
+
+
+def init_mamba_state(bsz: int, n_heads: int, head_dim: int, d_state: int,
+                     conv_dim: int, conv_kernel: int = 4,
+                     torch_device: str | torch.device = "cuda"):
+    """A zero decode state on ``torch_device``: h (B, H, dh, ds) and the
+    conv window (B, K-1, conv_dim), both float32."""
+    torch_device = resolve_device(torch_device)
+    return {
+        "h": torch.zeros((bsz, n_heads, head_dim, d_state),
+                         dtype=torch.float32, device=torch_device),
+        "conv": torch.zeros((bsz, conv_kernel - 1, conv_dim),
+                            dtype=torch.float32, device=torch_device),
+    }
+
+
+def decode_mamba2(p, x, state, *, head_dim: int = 64, d_state: int = 64):
+    """Single-token step. x (B, 1, D); state {'h', 'conv'} -> (y, new
+    state)."""
+    btype = x.dtype
+    bsz = x.shape[0]
+    d_inner = p["norm_w"].shape[0]
+    n_heads = p["A_log"].shape[0]
+
+    proj = x @ p["in_proj"].to(btype)
+    z, dt_raw, xbc = _split_proj(proj, d_inner, d_state, n_heads)
+    # rolling conv buffer
+    window = torch.cat([state["conv"], xbc.float()], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    xbc1 = F.silu(conv_out)                                        # (B, conv)
+    x_in = xbc1[:, :d_inner].reshape(bsz, n_heads, head_dim)
+    B = xbc1[:, d_inner:d_inner + d_state]
+    C = xbc1[:, d_inner + d_state:]
+
+    dt = _softplus(dt_raw[:, 0].float() + p["dt_bias"])            # (B,H)
+    a = torch.exp(dt * (-torch.exp(p["A_log"]))[None, :])          # (B,H)
+    h = state["h"] * a[..., None, None] + torch.einsum(
+        "bh,bhd,bs->bhds", dt, x_in, B)
+    y = torch.einsum("bhds,bs->bhd", h, C) + p["D"][None, :, None] * x_in
+    y = y.reshape(bsz, 1, d_inner)
+    y = rms_norm(y * F.silu(z.float()), p["norm_w"])
+    out = y.to(btype) @ p["out_proj"].to(btype)
+    return out, {"h": h, "conv": window[:, 1:]}

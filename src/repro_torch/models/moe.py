@@ -1,0 +1,140 @@
+"""Top-k routed MoE with sort-based (active-FLOPs-only) dispatch (the
+reference's ``models.moe``).
+
+Routing, per sequence (batch-local: capacity is per sequence and no sort
+or scatter crosses the batch axis):
+* gates = softmax(x @ router) in float32; the top k by a stable
+  descending sort, so ties go to the lower expert index as
+  ``jax.lax.top_k`` breaks them (``torch.topk`` promises no tie order);
+* the (token, expert) pairs are sorted by expert with a STABLE sort,
+  which decides the tokens that overflow an expert's capacity
+  ``cap = max(k, round(s * k / E * capacity_factor))`` (Python's round,
+  half to even) and are dropped: their combine weight contributes
+  nothing;
+* kept tokens are copied into an (E * cap) slot buffer, each expert runs
+  its SwiGLU on its cap slots, and every token sums its k contributions.
+
+Sums that must not depend on the device: the expert counts are integers;
+the dispatch adds each kept token once into a zeroed slot and overflow
+rows add zeros, so any order of that scatter gives the same bits; the
+combine sums each token's k contributions in a fixed loop in ascending
+expert order, the order in which XLA's CPU scatter applies them (a CUDA
+``index_add_`` would add them in atomic, run-dependent order).
+
+Expert stacks are cast to the activations' dtype at every call, as in
+the reference. In a decode step (s = 1) the capacity is k, so each
+sequence runs E * k expert slots for its k real ones: the reference's
+design, kept.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .common import act_fn, dense_init
+
+
+def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int):
+    """router (D, E); expert stacks wi, wg (E, D, F) and wo (E, F, D)."""
+    def stack(d_in, d_out):
+        return torch.randn((n_experts, d_in, d_out), generator=gen,
+                           device=gen.device, dtype=torch.float32) \
+            * (1.0 / math.sqrt(d_in))
+    return {"router": dense_init(gen, d_model, n_experts),
+            "wi": stack(d_model, d_ff), "wg": stack(d_model, d_ff),
+            "wo": stack(d_ff, d_model)}
+
+
+def capacity(s: int, top_k: int, n_experts: int,
+             capacity_factor: float) -> int:
+    """Slots per expert and sequence (the reference's rule)."""
+    cap = int(max(top_k, round(s * top_k / n_experts * capacity_factor)))
+    return min(cap, s * top_k)
+
+
+def top_k_gates(gates, k: int):
+    """(values, indices) of the k largest gates along the last axis, in
+    descending order, ties to the lower index (``jax.lax.top_k``'s rule)."""
+    idx = torch.argsort(gates, dim=-1, descending=True, stable=True)[..., :k]
+    return torch.gather(gates, -1, idx), idx
+
+
+def route(router, x, *, top_k: int, cap: int):
+    """The routing of ``x`` (B, S, D): a dict of (B, S*k) tensors in
+    expert-sorted order: ``se`` expert, ``st`` token, ``sw`` normalised
+    gate weight, ``keep`` (within capacity), ``dest`` (slot in the
+    (E * cap) buffer; overflow rows point at the last slot); plus ``idx``
+    (B, S, k), each token's experts in descending gate order."""
+    b, s, _ = x.shape
+    e = router.shape[-1]
+    tk = s * top_k
+    dev = x.device
+    gates = torch.softmax(x.float() @ router.float(), dim=-1)      # (B,S,E)
+    w, idx = top_k_gates(gates, top_k)                              # (B,S,k)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = idx.reshape(b, tk)
+    flat_t = torch.arange(s, device=dev).repeat_interleave(top_k) \
+        .expand(b, tk)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
+    st = torch.gather(flat_t, 1, order)
+    sw = torch.gather(w.reshape(b, tk), 1, order)
+    counts = torch.zeros((b, e), dtype=torch.int64, device=dev) \
+        .scatter_add_(1, se, torch.ones_like(se))
+    starts = torch.cumsum(counts, dim=1) - counts                   # exclusive
+    pos = torch.arange(tk, device=dev)[None] - torch.gather(starts, 1, se)
+    keep = pos < cap
+    dest = torch.where(keep, se * cap + pos,
+                       torch.full_like(se, e * cap - 1))
+    return {"se": se, "st": st, "sw": sw, "keep": keep, "dest": dest,
+            "order": order, "idx": idx}
+
+
+def apply_moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
+              act: str = "silu"):
+    """x: (B, S, D) -> (B, S, D): route, dispatch, expert SwiGLU, combine.
+
+    The port has no device mesh, so this is always the reference's
+    unsharded path (``_moe_compute(..., constrain=True)`` with no active
+    mesh); its ``shard_map`` path, which slices the experts' F axis over
+    'model', waits for ``distributed/sharding.py``.
+    """
+    b, s, d = x.shape
+    e = params["router"].shape[-1]
+    cap = capacity(s, top_k, e, capacity_factor)
+    dt = x.dtype
+    r = route(params["router"], x, top_k=top_k, cap=cap)
+    keep, dest, st = r["keep"], r["dest"], r["st"]
+    keep3 = keep[..., None]
+
+    xg = torch.gather(x, 1, st[..., None].expand(-1, -1, d))      # (B,Tk,D)
+    buf = torch.zeros((b, e * cap, d), dtype=dt, device=x.device)
+    buf.scatter_add_(1, dest[..., None].expand(-1, -1, d),
+                     torch.where(keep3, xg, torch.zeros((), dtype=dt,
+                                                        device=x.device)))
+    xe = buf.reshape(b, e, cap, d)
+
+    a = act_fn(act)
+    hi = torch.einsum("becd,edf->becf", xe, params["wi"].to(dt))
+    hg = torch.einsum("becd,edf->becf", xe, params["wg"].to(dt))
+    ye = torch.einsum("becf,efd->becd", a(hg) * hi, params["wo"].to(dt))
+
+    yflat = ye.reshape(b, e * cap, d)
+    contrib = torch.gather(yflat, 1, dest[..., None].expand(-1, -1, d)) \
+        * r["sw"][..., None].to(dt)
+    contrib = torch.where(keep3, contrib,
+                          torch.zeros((), dtype=dt, device=x.device))
+    # back to (token, k) order, then each token's k contributions in
+    # ascending expert order, summed left to right from zero
+    unsorted = torch.empty_like(contrib)
+    unsorted.scatter_(1, r["order"][..., None].expand(-1, -1, d), contrib)
+    by_expert = torch.argsort(r["idx"], dim=-1)                     # (B,S,k)
+    per_token = torch.gather(
+        unsorted.reshape(b, s, top_k, d), 2,
+        by_expert[..., None].expand(-1, -1, -1, d))
+    out = torch.zeros((b, s, d), dtype=dt, device=x.device)
+    for j in range(top_k):
+        out = out + per_token[:, :, j]
+    return out

@@ -1,0 +1,91 @@
+"""RWKV-6 (Finch) language model (the reference's ``models.rwkv_model``):
+attention-free, O(1)-state decode, no prefill (serving warms the state
+token by token through ``decode_step``)."""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from .common import embed_init
+from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, decode_rwkv_tmix,
+                    init_rwkv_cmix, init_rwkv_tmix)
+from .transformer import (_apply_norm, _dtype, _embed, _init_norm, _layer,
+                          init_stacked)
+
+
+def _block_init(gen: torch.Generator, cfg: ModelConfig):
+    return {"tmix": init_rwkv_tmix(gen, cfg.d_model, cfg.rwkv_head_dim),
+            "cmix": init_rwkv_cmix(gen, cfg.d_model, cfg.d_ff),
+            "norm1": _init_norm(cfg, cfg.d_model, gen.device),
+            "norm2": _init_norm(cfg, cfg.d_model, gen.device)}
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig):
+    """Random float32 parameters in the reference's tree: embed (V, D),
+    blocks (stacked tmix / cmix / norms), final_norm, head (D, V)."""
+    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
+              "blocks": init_stacked(lambda: _block_init(gen, cfg),
+                                     cfg.n_layers),
+              "final_norm": _init_norm(cfg, cfg.d_model, gen.device)}
+    params["head"] = torch.randn((cfg.d_model, cfg.vocab_size),
+                                 generator=gen, device=gen.device) \
+        / cfg.d_model ** 0.5
+    return params
+
+
+def forward(params, cfg: ModelConfig, tokens):
+    """tokens (B, S) -> final-norm hiddens (B, S, D) in cfg.dtype."""
+    x = _embed(params, cfg, tokens)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        y, _ = apply_rwkv_tmix(p["tmix"], _apply_norm(cfg, p["norm1"], x),
+                               head_dim=cfg.rwkv_head_dim)
+        x = x + y
+        y, _ = apply_rwkv_cmix(p["cmix"], _apply_norm(cfg, p["norm2"], x))
+        x = x + y
+    return _apply_norm(cfg, params["final_norm"], x)
+
+
+# --------------------------------------------------------------------------
+# Decode: pure recurrent state, no KV cache
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, dtype=None,
+               torch_device: str | torch.device = "cuda"):
+    """Token-shift states tmix_x, cmix_x (L, B, 1, D) in ``cfg.dtype`` and
+    the WKV state S (L, B, H, N, N) in float32; pos 0. ``max_len`` is
+    unused (the state does not grow)."""
+    dev = resolve_device(torch_device)
+    dt = dtype or _dtype(cfg)
+    l, d, n = cfg.n_layers, cfg.d_model, cfg.rwkv_head_dim
+    return {
+        "tmix_x": torch.zeros((l, batch, 1, d), dtype=dt, device=dev),
+        "cmix_x": torch.zeros((l, batch, 1, d), dtype=dt, device=dev),
+        "S": torch.zeros((l, batch, d // n, n, n), dtype=torch.float32,
+                         device=dev),
+        "pos": 0,
+    }
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens):
+    """tokens (B,) -> (logits (B, V) float32, cache); the states are
+    written in place in the cache's tensors."""
+    x = _embed(params, cfg, tokens)[:, None, :]
+    tx, cx, S = cache["tmix_x"], cache["cmix_x"], cache["S"]
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        xin = _apply_norm(cfg, p["norm1"], x)
+        y, st = decode_rwkv_tmix(p["tmix"], xin,
+                                 {"x": tx[i].to(xin.dtype), "S": S[i]},
+                                 head_dim=cfg.rwkv_head_dim)
+        x = x + y
+        xin2 = _apply_norm(cfg, p["norm2"], x)
+        y2, cx_new = apply_rwkv_cmix(p["cmix"], xin2, cx[i].to(xin2.dtype))
+        x = x + y2
+        tx[i] = st["x"].to(tx.dtype)
+        cx[i] = cx_new.to(cx.dtype)
+        S[i] = st["S"]
+    h = _apply_norm(cfg, params["final_norm"], x)[:, 0]
+    logits = (h @ params["head"].to(h.dtype)).float()
+    return logits, {**cache, "pos": int(cache["pos"]) + 1}

@@ -1,20 +1,28 @@
-"""The dense transformer stack (qwen2, qwen3, chatglm3): the reference's
-``models.transformer`` for ``family == "dense"``.
+"""The transformer stacks (the reference's ``models.transformer``): dense
+(qwen2, qwen3, chatglm3), MoE (granite, olmoe), the llava backbone (vlm)
+and hubert (encoder).
 
 Parameters keep the reference's tree and shapes, so its weights carry
-across by copying (``convert.transformer_params_from_arrays``):
+across by copying (``convert.lm_params_from_arrays``):
 * blocks stacked on a leading layer axis ((L, ...) leaves), driven by a
   plain loop over the layers;
 * attention weights HEAD-MAJOR, wq (L, D, Hp, dh), wo (L, Hp, dh, D), with
   the heads padded to ``cfg.padded_heads`` and the padded heads masked
   (zero wo rows, zeroed outputs), so the padded model is exactly the
   ``n_heads`` model; dropping that TPU padding is later work;
-* the vocabulary padded to a multiple of 256, sliced off the logits.
+* MoE blocks hold ``models.moe``'s router and (L, E, ...) expert stacks in
+  place of the MLP;
+* the vocabulary padded to a multiple of 256, sliced off the logits;
+* the encoder's conv positional embedding ``pos_conv``: w (128, D/16, D)
+  in the reference's WIO layout, kernel 128, 16 groups, "SAME" padding
+  (63 left, 64 right), computed in float32. On the card that conv runs
+  under cuDNN, whose TF32 default (``torch.backends.cudnn.allow_tf32``)
+  rounds its float32 inputs unless the caller turns it off, as
+  ``chip_smoke.py`` does.
 
-Weights stay float32 and are cast to ``cfg.dtype`` at use. The other
-families raise ``NotImplementedError`` naming the part of ROADMAP queue 1,
-step 4 that ports them; ``lm_loss`` and ``chunked_ce_loss`` wait for its
-training part.
+Weights stay float32 and are cast to ``cfg.dtype`` at use. ``lm_loss``
+and ``chunked_ce_loss`` wait for the training part of ROADMAP queue 1,
+step 4.
 """
 from __future__ import annotations
 
@@ -25,24 +33,18 @@ from ..device import resolve_device
 from .attention import decode_attention, flash_attention
 from .common import (act_fn, apply_rope, dense_init, embed_init, layer_norm,
                      rms_norm)
+from .moe import apply_moe, init_moe
 
-#: ROADMAP queue 1 step-4 parts that port each family the port lacks
-NOT_YET_PORTED = {"moe": "step 4 (the moe family)",
-                  "vlm": "step 4 (vlm and encoder)",
-                  "encoder": "step 4 (vlm and encoder)",
-                  "hybrid": "step 4 (hybrid and rwkv6)",
-                  "rwkv": "step 4 (hybrid and rwkv6)"}
+#: the families this module builds (zamba and rwkv_model build the others)
+FAMILIES = ("dense", "moe", "vlm", "encoder")
+#: hubert's conv positional embedding: kernel width and groups
+POS_CONV_KERNEL, POS_CONV_GROUPS = 128, 16
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise unless the port builds ``cfg``'s family (dense only so far)."""
-    if cfg.family == "dense":
-        return
-    if cfg.family in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not yet ported to "
-            f"repro_torch (ROADMAP queue 1, {NOT_YET_PORTED[cfg.family]})")
-    raise ValueError(f"no model family {cfg.family!r}")
+    """Raise unless ``cfg`` is a transformer family."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"no transformer family {cfg.family!r}")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -100,7 +102,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig):
-    return {"attn": init_attn(gen, cfg), "ffn": init_mlp(gen, cfg),
+    ffn = (init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts)
+           if cfg.n_experts else init_mlp(gen, cfg))
+    return {"attn": init_attn(gen, cfg), "ffn": ffn,
             "norm1": _init_norm(cfg, cfg.d_model, gen.device),
             "norm2": _init_norm(cfg, cfg.d_model, gen.device)}
 
@@ -112,11 +116,26 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return cfg.vocab_size + (-cfg.vocab_size) % 256
 
 
-def _stack(trees):
-    """Stack per-layer dicts of tensors into one dict of (L, ...) tensors."""
+def _map(fn, *trees):
+    """``fn`` over the leaves of dicts of one structure."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def init_stacked(make, n: int):
+    """``n`` layers of ``make()`` stacked into (n, ...) leaves, drawn in
+    layer order. Each layer is copied into the stack as it is drawn, so
+    memory peaks at the stack plus one layer (not twice the stack)."""
+    layer = make()
+    stack = _map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                                       device=t.device), layer)
+    for i in range(n):
+        if i:
+            layer = make()
+        _map(lambda dst, src: dst[i].copy_(src), stack, layer)
+        del layer
+    return stack
 
 
 def _layer(tree, i: int):
@@ -132,12 +151,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
     check_family(cfg)
     params = {
         "embed": embed_init(gen, padded_vocab(cfg), cfg.d_model),
-        "blocks": _stack([init_block(gen, cfg)
-                          for _ in range(cfg.n_layers)]),
+        "blocks": init_stacked(lambda: init_block(gen, cfg), cfg.n_layers),
         "final_norm": _init_norm(cfg, cfg.d_model, gen.device),
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, padded_vocab(cfg))
+    if cfg.family == "encoder":
+        d = cfg.d_model
+        params["pos_conv"] = {
+            "w": torch.randn((POS_CONV_KERNEL, d // POS_CONV_GROUPS, d),
+                             generator=gen, device=gen.device,
+                             dtype=torch.float32) * 0.01,
+            "b": torch.zeros((d,), dtype=torch.float32, device=gen.device)}
     return params
 
 
@@ -180,7 +205,17 @@ def _attn_out(p, cfg: ModelConfig, o, dt):
     return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dt))
 
 
+def attn_block(p, cfg: ModelConfig, x, positions):
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk,
+                        k_chunk=cfg.attn_k_chunk)
+    return _attn_out(p, cfg, o, x.dtype)
+
+
 def ffn_block(p, cfg: ModelConfig, x):
+    if cfg.n_experts:
+        return apply_moe(p, x, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, act=cfg.act)
     dt = x.dtype
     a = act_fn(cfg.act)
     hi = x @ p["wi"].to(dt)
@@ -191,6 +226,32 @@ def ffn_block(p, cfg: ModelConfig, x):
 def _embed(params, cfg: ModelConfig, tokens):
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
     return params["embed"][tokens].to(_dtype(cfg))
+
+
+def pos_conv(pc, x):
+    """hubert's conv positional embedding of ``x`` (B, S, D), in float32:
+    ``conv_general_dilated`` with WIO weights, 16 feature groups and
+    "SAME" padding, as ``conv1d`` with (D, D/16, 128) weights over the
+    input padded by hand."""
+    k = pc["w"].shape[0]
+    left = (k - 1) // 2                      # "SAME": 63 left, 64 right
+    xt = torch.nn.functional.pad(x.float().transpose(1, 2),
+                                 (left, k - 1 - left))
+    out = torch.nn.functional.conv1d(xt, pc["w"].float().permute(2, 1, 0),
+                                     groups=POS_CONV_GROUPS)
+    return out.transpose(1, 2)
+
+
+def _inputs(params, cfg: ModelConfig, tokens, embeds, vision_embeds):
+    """The residual stream's input (B, S, D) in cfg.dtype: token embeddings
+    or ``embeds``, with ``vision_embeds`` (B, n_vis, D) over the first n_vis
+    positions (llava's prefix splice)."""
+    dt = _dtype(cfg)
+    x = _embed(params, cfg, tokens) if embeds is None else embeds.to(dt)
+    if vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(dt), x[:, nv:]], dim=1)
+    return x
 
 
 def _positions(b: int, s: int, device):
@@ -208,10 +269,15 @@ def _block_collect(p, cfg: ModelConfig, x, positions):
     return x, (k, v)
 
 
-def forward(params, cfg: ModelConfig, tokens):
-    """tokens (B, S) -> final-norm hiddens (B, S, D) in cfg.dtype."""
+def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            vision_embeds=None):
+    """tokens (B, S) or embeds (B, S, D) -> final-norm hiddens (B, S, D) in
+    cfg.dtype; the encoder adds its conv positional embedding first."""
     check_family(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _inputs(params, cfg, tokens, embeds, vision_embeds)
+    if cfg.family == "encoder":
+        pc = params["pos_conv"]
+        x = x + act_fn("gelu")(pos_conv(pc, x) + pc["b"]).to(x.dtype)
     positions = _positions(*x.shape[:2], x.device)
     for i in range(cfg.n_layers):
         x, _ = _block_collect(_layer(params["blocks"], i), cfg, x, positions)
@@ -227,14 +293,16 @@ def _logits(params, cfg: ModelConfig, h):
     return logits[:, :cfg.vocab_size]            # drop vocab padding
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int | None = None):
+def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
+            vision_embeds=None, max_len: int | None = None):
     """Forward pass that ALSO emits the KV cache (serving prefill).
 
     Returns (last_logits (B, V) float32, cache); ``max_len >= S`` pads the
-    cache for the decode steps that follow.
+    cache for the decode steps that follow, whose positions continue from
+    S (vision tokens included).
     """
     check_family(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _inputs(params, cfg, tokens, embeds, vision_embeds)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     ks, vs = [], []

@@ -6,39 +6,59 @@ reference's ``models.zoo``).
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=96)
     logits, cache = model.decode_step(params, cache, next_tokens)
 
-The port builds the ``dense`` family; the others raise
-``NotImplementedError`` naming the ROADMAP step that ports them. ``loss``
-waits for the training slice, and ``input_specs`` / ``cache_specs`` (the
-dry-run's shape stand-ins) for the dry-run's.
+Every family of the reference's registry but ``ising`` builds. As in the
+reference, ``prefill`` is None for the encoder and the recurrent families
+(hybrid, rwkv), and ``init_cache`` / ``decode_step`` are None for the
+encoder. ``loss`` waits for the training slice, and ``input_specs`` /
+``cache_specs`` (the dry-run's shape stand-ins) for the dry-run's.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from ..configs.base import ModelConfig
-from . import transformer
+from . import rwkv_model, transformer, zamba
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable[..., Any]           # (generator) -> params
-    forward: Callable[..., Any]        # (params, batch) -> hiddens
-    prefill: Callable[..., Any]        # (params, batch, max_len) -> (logits, cache)
-    init_cache: Callable[..., Any]     # (batch, max_len, torch_device) -> cache
-    decode_step: Callable[..., Any]    # (params, cache, tokens) -> (logits, cache)
+    init: Callable[..., Any]                       # (generator) -> params
+    forward: Callable[..., Any]                    # (params, batch) -> hiddens
+    prefill: Optional[Callable[..., Any]] = None   # (params, batch, max_len) -> (logits, cache)
+    init_cache: Optional[Callable[..., Any]] = None  # (batch, max_len, torch_device) -> cache
+    decode_step: Optional[Callable[..., Any]] = None  # (params, cache, tokens) -> (logits, cache)
 
 
 def build(cfg: ModelConfig) -> Model:
-    transformer.check_family(cfg)
+    if cfg.family in transformer.FAMILIES:
+        def fwd(p, b):
+            return transformer.forward(
+                p, cfg, b.get("tokens"), embeds=b.get("embeds"),
+                vision_embeds=b.get("vision_embeds"))
+
+        def pre(p, b, max_len=None):
+            return transformer.prefill(
+                p, cfg, b.get("tokens"), embeds=b.get("embeds"),
+                vision_embeds=b.get("vision_embeds"), max_len=max_len)
+
+        def cache(b, s, torch_device="cuda"):
+            return transformer.init_cache(cfg, b, s,
+                                          torch_device=torch_device)
+        return Model(
+            cfg=cfg, init=lambda gen: transformer.init_params(gen, cfg),
+            forward=fwd,
+            prefill=pre if cfg.family != "encoder" else None,
+            init_cache=cache if cfg.has_decode else None,
+            decode_step=((lambda p, c, t: transformer.decode_step(p, cfg, c, t))
+                         if cfg.has_decode else None))
+    recurrent = {"hybrid": zamba, "rwkv": rwkv_model}.get(cfg.family)
+    if recurrent is None:
+        raise ValueError(f"no model family {cfg.family!r}")
     return Model(
-        cfg=cfg,
-        init=lambda gen: transformer.init_params(gen, cfg),
-        forward=lambda p, b: transformer.forward(p, cfg, b["tokens"]),
-        prefill=lambda p, b, max_len=None: transformer.prefill(
-            p, cfg, b["tokens"], max_len=max_len),
-        init_cache=lambda b, s, torch_device="cuda": transformer.init_cache(
+        cfg=cfg, init=lambda gen: recurrent.init_params(gen, cfg),
+        forward=lambda p, b: recurrent.forward(p, cfg, b["tokens"]),
+        init_cache=lambda b, s, torch_device="cuda": recurrent.init_cache(
             cfg, b, s, torch_device=torch_device),
-        decode_step=lambda p, c, t: transformer.decode_step(p, cfg, c, t),
-    )
+        decode_step=lambda p, c, t: recurrent.decode_step(p, cfg, c, t))

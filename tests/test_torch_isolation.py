@@ -30,7 +30,10 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.serve, repro_torch.distributed.fault_tolerance, "
             "repro_torch.distributed.elastic, repro_torch.launch.serve_ising, "
             "repro_torch.distributed, repro_torch.configs, repro_torch.models, "
-            "repro_torch.data, repro_torch.launch.serve_lm; "
+            "repro_torch.data, repro_torch.launch.serve_lm, "
+            "repro_torch.models.moe, repro_torch.models.mamba2, "
+            "repro_torch.models.zamba, repro_torch.models.rwkv6, "
+            "repro_torch.models.rwkv_model; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -117,7 +120,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: solve(130, 0.5, 1, 2, solver="fabric-jax",
                                workload="gset", mesh_devices=8,
                                oracle=False),
-                 lambda: serve_lm.serve("qwen3-0.6b", 1, 4, 2)):
+                 lambda: serve_lm.serve("qwen3-0.6b", 1, 4, 2),
+                 lambda: serve_lm.serve("olmoe-1b-7b", 1, 4, 2),
+                 lambda: serve_lm.serve("zamba2-7b", 1, 4, 2),
+                 lambda: serve_lm.serve("hubert-xlarge", 1, 4, 2)):
         with pytest.raises(RuntimeError, match="torch_device='cpu'"):
             call()
     # asked for by name, the CPU works
@@ -164,6 +170,21 @@ def test_serve_cli_raises_without_cuda_unless_asked_for_the_cpu():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "-- final:" in out.stdout and "[sa-numpy]" in out.stdout
+
+
+def test_serve_lm_cli_raises_without_cuda_unless_asked_for_the_cpu():
+    env = _env(CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
+           "olmoe-1b-7b", "--batch", "1", "--prompt-len", "4", "--gen", "2"]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "torch_device='cpu'" in out.stderr
+    out = subprocess.run(cmd + ["--torch-device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "tok/s), sample:" in out.stdout
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
