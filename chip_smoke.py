@@ -127,6 +127,23 @@ exits nonzero:
                 embeddings over a 640-token prompt, batch 2, 8 decode
                 steps) and hubert-xlarge ((2, 500, 1280) frames, bf16 and
                 f32), each with its wall and peak memory.
+ 17. train    — the LM trainer: one train step of each family's reduced()
+                config in float32 on the card against the CPU from the
+                same state (qwen3-0.6b, olmoe-1b-7b, llava-next-mistral-7b,
+                hubert-xlarge, zamba2-7b at 5 layers, rwkv6-3b; loss,
+                grad_norm, lr_scale and every gradient leaf within
+                TRAIN_TOL), the card's step repeated bitwise or not;
+                whether one Mamba-2 layer's gradient at zamba2-7b's full
+                width is finite (normed inputs and x 4; reported); the
+                reference's restart protocol on the card (reduced
+                qwen3-0.6b: 20 straight steps against 10, a restore and 10
+                more; losses at rtol 1e-5, run twice, bitwise or not);
+                qwen3-0.6b at full width and depth through
+                launch.train.train (bfloat16, batch 8, seq 512, 20 steps,
+                one checkpoint at step 20): finite losses whose last-5 mean
+                is below the first-5 mean, step ms, tokens/s, the share of
+                the bf16 peak, peak memory, the checkpoint's save and
+                restore seconds and bytes, the restore bitwise.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -2401,6 +2418,7 @@ def phase_lm_families():
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import serve_lm
     from repro_torch.models import build
+    from repro_torch.pytree import leaves
 
     check(not torch.backends.cuda.matmul.allow_tf32 and
           not torch.backends.cudnn.allow_tf32, "TF32 must be off here")
@@ -2463,7 +2481,7 @@ def phase_lm_families():
     # the served weights again (serve draws them from seed 0 on the card),
     # run in bfloat16 and in float32 over the same prompts
     params = build(full).init(torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(t.numel() for t in _tensors(params))
+    n_params = sum(t.numel() for t in leaves(params))
     prompts, _ = SyntheticLM(full.vocab_size, LM_SERVE["prompt_len"],
                              LM_SERVE["batch"]).batch_at(0)
     prompts = torch.as_tensor(prompts, device="cuda")
@@ -2581,17 +2599,375 @@ def phase_lm_families():
     free_cuda()
 
 
-def _tensors(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _tensors(v)
-        else:
-            yield v
+#: one reduced train step of each family in float32, card against CPU
+#: from the same state; tolerances fixed before the first chip run: the
+#: port tests' bounds against the reference (tests/test_torch_train.py)
+TRAIN_FAMILIES = ("qwen3-0.6b", "olmoe-1b-7b", "llava-next-mistral-7b",
+                  "hubert-xlarge", "zamba2-7b", "rwkv6-3b")
+TRAIN_TOL = dict(loss_rtol=1e-4, loss_atol=1e-5, grad_norm_rtol=1e-4,
+                 grad_rtol=1e-3, grad_atol_of_max=1e-4)
+#: the reference's restart protocol (tests/test_train_integration.py)
+RESTART = dict(batch=4, seq=64, ckpt_every=10)
+#: qwen3-0.6b at full width and depth: 751,894,528 parameters
+TRAIN_FULL = dict(steps=20, batch=8, seq=512)
+
+
+def train_batch(cfg, B, S, dev, seed=0):
+    """``family_batch`` with seeded next-token labels; the vlm's vision
+    prefix carries no loss (labels -1)."""
+    import torch
+    batch = family_batch(cfg, B, S, dev, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    if cfg.family == "vlm":
+        labels[:, :cfg.n_vision_tokens] = -1
+    batch["labels"] = labels.to(dev)
+    return batch
+
+
+def grads_of(model, params, batch):
+    """{path: gradient} of ``model.loss`` over every leaf."""
+    import torch
+
+    from repro_torch.pytree import flatten_with_paths, leaves, tree_map
+    tp = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = model.loss(tp, batch)
+    grads = torch.autograd.grad(loss, leaves(tp), allow_unused=True,
+                                materialize_grads=True)
+    return {k: g for (k, _), g in zip(flatten_with_paths(tp), grads)}
+
+
+def grads_close(card, cpu):
+    """Largest |card - cpu| over the allowed error, over every leaf (<= 1
+    passes)."""
+    worst = 0.0
+    for k, ref in cpu.items():
+        got = card[k].cpu()
+        allowed = (TRAIN_TOL["grad_atol_of_max"] * float(ref.abs().max())
+                   + 1e-12 + TRAIN_TOL["grad_rtol"] * ref.abs())
+        worst = max(worst, float(((got - ref).abs() / allowed).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def train_spies(record):
+    """Within the block, ``launch.train.train`` times every step into
+    ``record["step_s"]`` (what its ``StragglerDetector`` observes: a host
+    clock around the step, which ends in the loss's read-back) and every
+    save into ``record["save_s"]``, and keeps the saved state in
+    ``record["saved"]``."""
+    from repro_torch.launch import train as train_mod
+    real_det, real_ck = train_mod.StragglerDetector, train_mod.Checkpointer
+
+    class Detector(real_det):
+        def observe(self, dt):
+            record["step_s"].append(dt)
+            return super().observe(dt)
+
+    class Timed(real_ck):
+        def save(self, step, tree, metadata=None):
+            t0 = time.perf_counter()
+            super().save(step, tree, metadata)
+            record["save_s"].append(time.perf_counter() - t0)
+            record["saved"] = tree
+            record["path"] = self._path(step)
+
+    train_mod.StragglerDetector, train_mod.Checkpointer = Detector, Timed
+    try:
+        yield record
+    finally:
+        train_mod.StragglerDetector, train_mod.Checkpointer = \
+            real_det, real_ck
+
+
+def optimizer_ms(state):
+    """Median CUDA-event time (ms, 3 calls after a warm-up) of the step's
+    optimizer part alone on ``state``: clipping, the schedule, AdamW and
+    the update, with the first moments standing in for the gradients."""
+    import torch
+
+    from repro_torch.optim import (AdamWConfig, adamw, apply_updates,
+                                   clip_by_global_norm, linear_warmup_cosine)
+
+    def run():
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(state.opt["m"], 1.0)
+            lr = linear_warmup_cosine(state.step + 1, 5, 10_000)
+            upd, _ = adamw(grads, state.opt, state.params,
+                           AdamWConfig(lr=1e-3), lr)
+            apply_updates(state.params, upd)
+    return statistics.median(cuda_ms(run, 3))
+
+
+def profile_train_steps(step_fn, state, batch, n=2):
+    """``n`` train steps from ``state`` under torch.profiler (CUDA
+    activity), after one warm-up step: device kernels a step, their summed
+    time against the steps' host wall (the device's busy share), the time
+    in matrix-multiply kernels (cuBLAS / CUTLASS names) and the kernels
+    that take the most time; beside them the optimizer part timed alone
+    (``optimizer_ms``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            _, m = step_fn(state, batch)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    count = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            count += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    gemm = sum(v for k, v in by_name.items()
+               if any(t in k.lower() for t in ("gemm", "xmma", "cutlass")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"steps": n, "wall_ms_per_step": 1e3 * wall / n,
+            "optimizer_ms": optimizer_ms(state),
+            "kernels_per_step": count / n,
+            "device_busy_ms_per_step": busy / n,
+            "device_busy_share": busy / (1e3 * wall),
+            "matmul_kernel_ms_per_step": gemm / n,
+            "top_kernels_ms_per_step": [[k[:100], v / n] for k, v in top]}
+
+
+def mamba2_full_width_grads():
+    """One Mamba-2 layer at zamba2-7b's full width on the card (d_model
+    3584, 112 heads, 256 tokens, weights and inputs from seed 0): whether
+    its gradient is finite on rms-normed inputs and on the same inputs
+    x 4, in float32 and bfloat16. Above a chunk's diagonal the decay's
+    exp overflows and is selected away; backward then multiplies a zero
+    by inf (the reference's behaviour, which the port mirrors)."""
+    import torch
+
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.mamba2 import apply_mamba2, init_mamba2
+    cfg = family_cfg("zamba2-7b", full=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_mamba2(gen, cfg.d_model, expand=cfg.ssm_expand,
+                    head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
+                    conv_kernel=cfg.conv_kernel)
+    x = rms_norm(torch.randn((1, 256, cfg.d_model), generator=gen,
+                             device="cuda"),
+                 torch.ones(cfg.d_model, device="cuda"))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for scale in (1, 4):
+            tp = {k: v.detach().requires_grad_() for k, v in p.items()}
+            y, _ = apply_mamba2(tp, (x * scale).to(getattr(torch, dtype)),
+                                head_dim=cfg.ssm_head_dim,
+                                d_state=cfg.ssm_state)
+            grads = torch.autograd.grad(torch.sum(y.float() ** 2),
+                                        list(tp.values()))
+            out[f"{dtype}_x{scale}"] = {
+                "forward_finite": bool(torch.isfinite(y).all()),
+                "grad_finite": all(bool(torch.isfinite(g).all())
+                                   for g in grads)}
+    return out
+
+
+def phase_train():
+    """The LM trainer (no kernel of its own: the reference's training path
+    is plain jnp). (1) One train step of each family's reduced config in
+    float32 on the card against the CPU from the same state (TF32 off):
+    loss, grad_norm, lr_scale and every gradient leaf within
+    ``TRAIN_TOL``; the card's step repeated, bitwise or not; whether a
+    Mamba-2 layer's gradient at zamba2's full width is finite. (2) The
+    reference's restart protocol on the card, reduced qwen3-0.6b: 20
+    straight steps against 10, a restore and 10 more, losses at rtol 1e-5,
+    run twice; bitwise or not. (3) qwen3-0.6b at full width and depth
+    through ``launch.train.train`` (bf16 over f32 weights, batch 8, seq
+    512, 20 steps, one checkpoint at step 20): finite losses falling,
+    step time, tokens per second, the share of the bf16 peak, peak
+    memory, the checkpoint's save and restore seconds and bytes, and the
+    restore bitwise into a fresh state; two more steps from the saved
+    state under torch.profiler (kernels a step, the device's busy
+    share)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import train
+    from repro_torch.models import build
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import leaves, tree_map
+    from repro_torch.training import init_train_state, make_train_step
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          not torch.backends.cudnn.allow_tf32, "TF32 must be off here")
+    for arch in TRAIN_FAMILIES:
+        cfg = family_cfg(arch)
+        model = build(cfg)
+        cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
+        card = tree_map(lambda t: t.cuda(), cpu)
+        B, S = 2, 32
+        b_cpu, b_card = (train_batch(cfg, B, S, d) for d in ("cpu", "cuda"))
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), 10_000, 5)
+        _, m_cpu = step(cpu, b_cpu)
+        _, m_card = step(card, b_card)
+        _, m_again = step(card, b_card)
+        g_cpu = grads_of(model, cpu.params, b_cpu)
+        g_card = grads_of(model, card.params, b_card)
+        g_again = grads_of(model, card.params, b_card)
+        m_cpu, m_card = ({k: float(v) for k, v in m.items()}
+                         for m in (m_cpu, m_card))
+        worst = grads_close(g_card, g_cpu)
+        row = {"arch": arch, "family": cfg.family,
+               "config": f"reduced(n_layers={cfg.n_layers}), float32",
+               "batch": [B, S], "cpu": m_cpu, "card": m_card,
+               "loss_rel_err": abs(m_card["loss"] - m_cpu["loss"])
+               / abs(m_cpu["loss"]),
+               "grad_norm_rel_err": abs(m_card["grad_norm"] -
+                                        m_cpu["grad_norm"])
+               / m_cpu["grad_norm"],
+               "grad_leaves": len(g_cpu),
+               "grad_worst_over_allowed": worst,
+               "card_repeat_bitwise": bool(
+                   float(m_again["loss"]) == m_card["loss"] and
+                   all(torch.equal(g_again[k], g_card[k]) for k in g_card))}
+        emit({"phase": "train", "card_vs_cpu": row})
+        check(abs(m_card["loss"] - m_cpu["loss"]) <=
+              TRAIN_TOL["loss_atol"] + TRAIN_TOL["loss_rtol"] *
+              abs(m_cpu["loss"]), f"reduced {arch}: step loss card vs CPU")
+        check(row["grad_norm_rel_err"] <= TRAIN_TOL["grad_norm_rtol"],
+              f"reduced {arch}: grad_norm card vs CPU")
+        check(m_card["lr_scale"] == m_cpu["lr_scale"],
+              f"reduced {arch}: lr_scale card vs CPU")
+        check(worst <= 1.0, f"reduced {arch}: a gradient leaf card vs CPU "
+              f"at {worst} x its allowed error")
+    del cpu, card, g_cpu, g_card, g_again
+    emit({"phase": "train", "mamba2_full_width": mamba2_full_width_grads()})
+    free_cuda()
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(2):
+            d1 = os.path.join(tmp, f"straight{rep}")
+            d2 = os.path.join(tmp, f"restarted{rep}")
+            t0 = time.perf_counter()
+            straight = train(LM_ARCH, steps=20, ckpt_dir=d1,
+                             torch_device="cuda", **RESTART)
+            train(LM_ARCH, steps=10, ckpt_dir=d2, torch_device="cuda",
+                  **RESTART)
+            resumed = train(LM_ARCH, steps=20, ckpt_dir=d2,
+                            torch_device="cuda", **RESTART)
+            close = bool(np.allclose(resumed[-5:], straight[-5:], rtol=1e-5,
+                                     atol=0))
+            emit({"phase": "train", "restart": {
+                "arch": LM_ARCH, "config": "reduced, float32", **RESTART,
+                "run": rep, "wall_s": time.perf_counter() - t0,
+                "losses_straight_11_20": straight[10:],
+                "losses_resumed_11_20": resumed,
+                "max_rel_diff": float(np.max(
+                    np.abs(np.subtract(resumed, straight[10:]))
+                    / np.abs(straight[10:]))),
+                "within_rtol_1e-5": close,
+                "bitwise": resumed == straight[10:]}})
+            check(len(resumed) == 10 and close,
+                  f"restart on the card, run {rep}: losses off the straight "
+                  "run's beyond rtol 1e-5")
+            runs.append(straight)
+    emit({"phase": "train", "restart_repeat": {
+        "straight_runs_bitwise": runs[0] == runs[1]}})
+
+    full = family_cfg(LM_ARCH, full=True)
+    n_params = param_count(full)
+    need = 3 * 4 * n_params                      # params, m and v in f32
+    record = {"step_s": [], "save_s": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        emit({"phase": "train", "disk": {"dir": tmp, "free_bytes": free,
+                                         "checkpoint_bytes_needed": need}})
+        check(free >= 1.2 * need,
+              f"{tmp} has {free / 2**30:.1f} GiB free; the full-size "
+              f"checkpoint needs {need / 2**30:.1f} GiB")
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with train_spies(record):
+            losses = train(LM_ARCH, ckpt_dir=tmp, reduced=False,
+                           torch_device="cuda", **TRAIN_FULL)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        saved, path = record.pop("saved"), record.pop("path")
+        ckpt_bytes = os.path.getsize(path)
+        tokens, labels = SyntheticLM(full.vocab_size, TRAIN_FULL["seq"],
+                                     TRAIN_FULL["batch"]).batch_at(0)
+        prof = profile_train_steps(
+            make_train_step(full, AdamWConfig(lr=1e-3), 10_000, 5), saved,
+            {"tokens": torch.as_tensor(tokens, device="cuda"),
+             "labels": torch.as_tensor(labels, device="cuda")})
+        emit({"phase": "train", "profile": {
+            "arch": LM_ARCH, **TRAIN_FULL, **prof}})
+        free_cuda()
+        template = init_train_state(
+            full, torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        restored, meta = Checkpointer(tmp).restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        same = all(torch.equal(a, b) for a, b in
+                   zip(leaves(restored), leaves(saved)))
+        n_leaves = len(leaves(saved))
+        del saved, restored, template
+    free_cuda()
+    step_s = record["step_s"]
+    med = statistics.median(step_s[5:])
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+    finite = bool(np.all(np.isfinite(losses)))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    emit({"phase": "train", "full_size": {
+        "arch": LM_ARCH, "n_layers": full.n_layers, "d_model": full.d_model,
+        "vocab": full.vocab_size, "dtype": full.dtype, "params": n_params,
+        **TRAIN_FULL, "wall_s": wall,
+        "losses_1_5": losses[:5], "losses_16_20": losses[-5:],
+        "mean_first_5": first, "mean_last_5": last, "losses_finite": finite,
+        "step_ms_median_6_20": 1e3 * med, "step_ms_first": 1e3 * step_s[0],
+        "tokens_per_s": tokens / med,
+        "bf16_peak_share": 6 * n_params * tokens / med / PEAK_OPS["bfloat16"],
+        "bf16_peak_share_formula": "6 x params x tokens a step / median "
+                                   "step s / 989e12 (attention and remat "
+                                   "recompute not counted)",
+        "peak_allocated_gib": peak / 2**30,
+        "checkpoint_bytes": ckpt_bytes, "save_s": record["save_s"],
+        "restore_s": restore_s, "restored_leaves": n_leaves,
+        "restore_bitwise": same, "restored_step": meta["step"]}})
+    check(len(losses) == TRAIN_FULL["steps"] and finite,
+          f"{LM_ARCH} full size: non-finite losses {losses}")
+    check(last < first, f"{LM_ARCH} full size: loss did not fall "
+          f"({first} -> {last})")
+    check(len(record["save_s"]) == 1 and meta["step"] == TRAIN_FULL["steps"],
+          f"{LM_ARCH} full size: expected one checkpoint at step "
+          f"{TRAIN_FULL['steps']}")
+    check(same, f"{LM_ARCH} full size: the restored state differs")
+
+
+def param_count(cfg):
+    """Parameters of ``cfg``, counted off one init on the card."""
+    import torch
+
+    from repro_torch.models import build
+    from repro_torch.pytree import leaves
+    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    n = sum(t.numel() for t in leaves(params))
+    del params
+    free_cuda()
+    return n
 
 
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
           "gset", "sb_timing", "search", "zoo", "physics", "serve",
-          "fabric", "lm", "lm_families")
+          "fabric", "lm", "lm_families", "train")
 
 
 def main(argv=None) -> int:
@@ -2638,6 +3014,7 @@ def main(argv=None) -> int:
             "fabric": phase_fabric,
             "lm": phase_lm,
             "lm_families": phase_lm_families,
+            "train": phase_train,
         }
         out = {name: run[name]() for name in PHASES if name in phases}
     emit({"phase": "end", "total_s": time.perf_counter() - START})

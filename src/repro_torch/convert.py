@@ -7,7 +7,8 @@ reference ``Problem``'s arrays. A carried problem has the same
 ``content_hash``, so it keys the same oracle-cache entry. The reference's
 ``jax.random`` draws (SB initial states; the SA, PT and tabu searches'
 initial spins, spin orders, uniforms and kick indices) and the physics
-tier's chip-variation draws cross as numpy arrays too.
+tier's chip-variation draws cross as numpy arrays too, and so do the LM
+families' parameter trees and the trainer's states.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .api.suite import ProblemSuite
 from .core.device_model import DeviceModel
 from .core.perturbation import PerturbationConfig
 from .device import resolve_device
+from .pytree import leaves
 
 
 def _from_fields(cls, fields: dict):
@@ -211,16 +213,29 @@ def lm_params_from_arrays(tree, cfg,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} is {tuple(t.shape)}, {cfg.name} "
                              f"needs {shape}")
-    layers = {tuple(t.shape[:1]) for t in _leaves(params["blocks"])}
+    layers = {tuple(t.shape[:1]) for t in leaves(params["blocks"])}
     if layers != {(L,)}:
         raise ValueError(f"block leaves stack {sorted(layers)} layers, "
                          f"{cfg.name} has {L}")
     return params
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
+def train_state_from_arrays(params, opt, step, cfg,
+                            torch_device: str | torch.device = "cuda"):
+    """The reference's ``TrainState`` (numpy: its params tree, its opt
+    ``{"m", "v", "step"}`` and step, e.g. through ``jax.tree.map(
+    np.asarray, state)``) as the port's ``training.TrainState`` on
+    ``torch_device``: the params and both moment trees go through
+    ``lm_params_from_arrays`` (float32, shapes checked against ``cfg``),
+    the steps become 0-d int32 tensors."""
+    from .training import TrainState
+    dev = resolve_device(torch_device)
+
+    def count(a):
+        return torch.as_tensor(np.array(a, dtype=np.int32), device=dev)
+    return TrainState(
+        params=lm_params_from_arrays(params, cfg, torch_device=dev),
+        opt={"m": lm_params_from_arrays(opt["m"], cfg, torch_device=dev),
+             "v": lm_params_from_arrays(opt["v"], cfg, torch_device=dev),
+             "step": count(opt["step"])},
+        step=count(step))

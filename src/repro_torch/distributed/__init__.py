@@ -2,7 +2,7 @@
 membership (``fault_tolerance``, ``elastic``) and the mega-fabric
 (``fabric``: checkerboard LNS over virtual dies, ``fabric-jax``). The
 reference package's LM sharding (``sharding``, ``remesh``,
-``largest_mesh_shape``) is not ported yet (ROADMAP queue 1, step 4)."""
+``largest_mesh_shape``) is not ported yet (ROADMAP queue 1, step 5)."""
 from .fabric import (FabricLayout, FabricLNS, FabricMesh, FieldExchange,
                      fabric_mesh)
 

@@ -8,7 +8,7 @@ default), norms computed in fp32.
 
 The reference's sharding helpers (``active_mesh``, ``logical``, ``shard``)
 place tensors on a JAX mesh; they have no counterpart yet and go with
-``distributed/sharding.py`` to a later slice (ROADMAP queue 1, step 4).
+``distributed/sharding.py`` to a later slice (ROADMAP queue 1, step 5).
 """
 from __future__ import annotations
 

@@ -10,8 +10,8 @@ from ..device import resolve_device
 from .common import embed_init
 from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, decode_rwkv_tmix,
                     init_rwkv_cmix, init_rwkv_tmix)
-from .transformer import (_apply_norm, _dtype, _embed, _init_norm, _layer,
-                          init_stacked)
+from .transformer import (_apply_norm, _dtype, _embed, _init_norm,
+                          chunked_ce_loss, init_stacked, layers, remat)
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig):
@@ -37,14 +37,23 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 def forward(params, cfg: ModelConfig, tokens):
     """tokens (B, S) -> final-norm hiddens (B, S, D) in cfg.dtype."""
     x = _embed(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
-        y, _ = apply_rwkv_tmix(p["tmix"], _apply_norm(cfg, p["norm1"], x),
-                               head_dim=cfg.rwkv_head_dim)
-        x = x + y
-        y, _ = apply_rwkv_cmix(p["cmix"], _apply_norm(cfg, p["norm2"], x))
-        x = x + y
+    block = remat(lambda p, x: _block_step(p, cfg, x), cfg)
+    for p in layers(params["blocks"]):
+        x = block(p, x)
     return _apply_norm(cfg, params["final_norm"], x)
+
+
+def _block_step(p, cfg: ModelConfig, x):
+    y, _ = apply_rwkv_tmix(p["tmix"], _apply_norm(cfg, p["norm1"], x),
+                           head_dim=cfg.rwkv_head_dim)
+    x = x + y
+    y, _ = apply_rwkv_cmix(p["cmix"], _apply_norm(cfg, p["norm2"], x))
+    return x + y
+
+
+def lm_loss(params, cfg: ModelConfig, batch):
+    hidden = forward(params, cfg, batch["tokens"])
+    return chunked_ce_loss(params, cfg, hidden, batch["labels"])
 
 
 # --------------------------------------------------------------------------
@@ -73,8 +82,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     written in place in the cache's tensors."""
     x = _embed(params, cfg, tokens)[:, None, :]
     tx, cx, S = cache["tmix_x"], cache["cmix_x"], cache["S"]
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(layers(params["blocks"])):
         xin = _apply_norm(cfg, p["norm1"], x)
         y, st = decode_rwkv_tmix(p["tmix"], xin,
                                  {"x": tx[i].to(xin.dtype), "S": S[i]},

@@ -20,16 +20,22 @@ across by copying (``convert.lm_params_from_arrays``):
   rounds its float32 inputs unless the caller turns it off, as
   ``chip_smoke.py`` does.
 
-Weights stay float32 and are cast to ``cfg.dtype`` at use. ``lm_loss``
-and ``chunked_ce_loss`` wait for the training part of ROADMAP queue 1,
-step 4.
+Weights stay float32 and are cast to ``cfg.dtype`` at use. Each forward
+unbinds the stacked leaves once (``layers``). Under grad (training) with
+``cfg.remat`` every block runs under activation checkpointing, as the
+reference's ``jax.checkpoint``; the serving paths run without grad and
+compute exactly what they computed before. ``chunked_ce_loss`` never
+holds more than one chunk's (B, c, V) logits.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..pytree import tree_map
 from .attention import decode_attention, flash_attention
 from .common import (act_fn, apply_rope, dense_init, embed_init, layer_norm,
                      rms_norm)
@@ -116,33 +122,41 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return cfg.vocab_size + (-cfg.vocab_size) % 256
 
 
-def _map(fn, *trees):
-    """``fn`` over the leaves of dicts of one structure."""
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def init_stacked(make, n: int):
     """``n`` layers of ``make()`` stacked into (n, ...) leaves, drawn in
     layer order. Each layer is copied into the stack as it is drawn, so
     memory peaks at the stack plus one layer (not twice the stack)."""
     layer = make()
-    stack = _map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
-                                       device=t.device), layer)
+    stack = tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
+                                           dtype=t.dtype, device=t.device),
+                     layer)
     for i in range(n):
         if i:
             layer = make()
-        _map(lambda dst, src: dst[i].copy_(src), stack, layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, layer)
         del layer
     return stack
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked (L, ...) tree."""
+def layers(tree) -> list:
+    """The per-layer trees of a stacked (L, ...) tree, each leaf unbound
+    once. Under autograd one ``unbind``'s backward stacks the L grads in
+    one op; L selects ``tree[i]`` would each fill a zero tensor the size of
+    the whole stack and add all L of them into the leaf's grad."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: layers(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing when ``cfg.remat`` and grad is
+    on (the reference's ``jax.checkpoint``): its activations are
+    recomputed in backward instead of kept. Without grad, ``fn`` itself."""
+    if cfg.remat and torch.is_grad_enabled():
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return fn
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
@@ -224,8 +238,13 @@ def ffn_block(p, cfg: ModelConfig, x):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
+    """The token embeddings in cfg.dtype. ``F.embedding`` gathers the same
+    rows as indexing, and its backward sums a token's repeats in a fixed
+    order on the CPU and the card; indexing's backward (``index_put_``
+    with accumulate) adds them atomically across CPU threads, so two
+    identical training runs could differ."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-    return params["embed"][tokens].to(_dtype(cfg))
+    return F.embedding(tokens, params["embed"]).to(_dtype(cfg))
 
 
 def pos_conv(pc, x):
@@ -279,13 +298,70 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         pc = params["pos_conv"]
         x = x + act_fn("gelu")(pos_conv(pc, x) + pc["b"]).to(x.dtype)
     positions = _positions(*x.shape[:2], x.device)
-    for i in range(cfg.n_layers):
-        x, _ = _block_collect(_layer(params["blocks"], i), cfg, x, positions)
+    block = remat(lambda p, x: _block_collect(p, cfg, x, positions)[0], cfg)
+    for p in layers(params["blocks"]):
+        x = block(p, x)
     return _apply_norm(cfg, params["final_norm"], x)
 
 
 def lm_head_weight(params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels):
+    """Mean next-token cross entropy of ``hidden`` (B, S, D) against
+    ``labels`` (B, S), -1 = masked (the reference's chunked CE).
+
+    S is padded to whole ``cfg.loss_chunk`` chunks with masked labels; the
+    vocab-padded head's padded columns are set to -1e30 before the
+    logsumexp. Each chunk runs under activation checkpointing while grad
+    is on, so backward recomputes one chunk's (B, c, V) float32 logits at
+    a time instead of keeping every chunk's. The chunks' sums add in chunk
+    order, in float32.
+    """
+    b, s, _ = hidden.shape
+    w = lm_head_weight(params, cfg).to(hidden.dtype)
+    c = min(cfg.loss_chunk, s)
+    n = -(-s // c)
+    pad = n * c - s
+    hidden = F.pad(hidden, (0, 0, 0, pad))
+    labels = F.pad(torch.as_tensor(labels, device=hidden.device).long(),
+                   (0, pad), value=-1)
+
+    def nll(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(_chunk_nll, *args, use_reentrant=False)
+        return _chunk_nll(*args)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        t, m = nll(hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+                   w, cfg.vocab_size)
+        tot = tot + t
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _chunk_nll(h, lab, w, vocab: int):
+    """(sum of the chunk's masked NLL, its count of unmasked labels)."""
+    logits = (h @ w).float()                                   # (B, c, Vp)
+    v_pad = w.shape[-1]
+    if v_pad > vocab:
+        keep = torch.arange(v_pad, device=logits.device) < vocab
+        logits = torch.where(keep, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, torch.clamp(lab, min=0)[..., None])[..., 0]
+    mask = (lab >= 0).float()
+    return ((lse - tgt) * mask).sum(), mask.sum()
+
+
+def lm_loss(params, cfg: ModelConfig, batch):
+    """The LM loss of ``batch``: tokens (or the encoder's ``embeds``, with
+    the vlm's ``vision_embeds``) and labels."""
+    hidden = forward(params, cfg, batch.get("tokens"),
+                     embeds=batch.get("embeds"),
+                     vision_embeds=batch.get("vision_embeds"))
+    return chunked_ce_loss(params, cfg, hidden, batch["labels"])
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -306,9 +382,8 @@ def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        x, (k, v) = _block_collect(_layer(params["blocks"], i), cfg, x,
-                                   positions)
+    for p in layers(params["blocks"]):
+        x, (k, v) = _block_collect(p, cfg, x, positions)
         ks.append(k)
         vs.append(v)
     h = _apply_norm(cfg, params["final_norm"], x)[:, -1]
@@ -349,8 +424,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     dt = x.dtype
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     kc, vc = cache["k"], cache["v"]
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
+    for i, p in enumerate(layers(params["blocks"])):
         q, k, v = _qkv(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
                        positions)
         kc[i, :, pos] = k[:, 0].to(kc.dtype)

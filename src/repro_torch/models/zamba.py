@@ -17,8 +17,9 @@ from .attention import decode_attention
 from .common import embed_init
 from .mamba2 import apply_mamba2, decode_mamba2, init_mamba2
 from .transformer import (_apply_norm, _attn_out, _dtype, _embed,
-                          _init_norm, _layer, _positions, _qkv, attn_block,
-                          ffn_block, init_attn, init_mlp, init_stacked)
+                          _init_norm, _positions, _qkv, attn_block,
+                          chunked_ce_loss, ffn_block, init_attn, init_mlp,
+                          init_stacked, layers, remat)
 
 
 def _mamba_block_init(gen: torch.Generator, cfg: ModelConfig):
@@ -70,11 +71,18 @@ def forward(params, cfg: ModelConfig, tokens):
     """tokens (B, S) -> final-norm hiddens (B, S, D) in cfg.dtype."""
     x = _embed(params, cfg, tokens)
     positions = _positions(*x.shape[:2], x.device)
-    for i in range(cfg.n_layers):
-        x = _mamba_step(_layer(params["blocks"], i), cfg, x)
+    mamba = remat(lambda p, x: _mamba_step(p, cfg, x), cfg)
+    shared = remat(lambda p, x: _shared_step(p, cfg, x, positions), cfg)
+    for i, p in enumerate(layers(params["blocks"])):
+        x = mamba(p, x)
         if (i + 1) % cfg.attn_every == 0:      # the end of a group
-            x = _shared_step(params["shared"], cfg, x, positions)
+            x = shared(params["shared"], x)
     return _apply_norm(cfg, params["final_norm"], x)
+
+
+def lm_loss(params, cfg: ModelConfig, batch):
+    hidden = forward(params, cfg, batch["tokens"])
+    return chunked_ce_loss(params, cfg, hidden, batch["labels"])
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -118,8 +126,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     dt = x.dtype
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     shared = params["shared"]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
+    for i, lp in enumerate(layers(params["blocks"])):
         y, st = decode_mamba2(lp["mamba"], _apply_norm(cfg, lp["norm"], x),
                               {"h": cache["h"][i], "conv": cache["conv"][i]},
                               head_dim=cfg.ssm_head_dim,

@@ -33,7 +33,9 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.data, repro_torch.launch.serve_lm, "
             "repro_torch.models.moe, repro_torch.models.mamba2, "
             "repro_torch.models.zamba, repro_torch.models.rwkv6, "
-            "repro_torch.models.rwkv_model; "
+            "repro_torch.models.rwkv_model, repro_torch.optim, "
+            "repro_torch.training, repro_torch.checkpoint, "
+            "repro_torch.launch.train, repro_torch.pytree; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -54,7 +56,7 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from repro_torch.api import ProblemSuite, get_solver, solve_suite
     from repro_torch.core import AnnealEngine, IsingMachine
     from repro_torch.api import best_known_energies
@@ -73,6 +75,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.perturbation import DEFAULT_PERTURBATION
     from repro_torch.distributed import fabric_mesh
     from repro_torch.launch import serve_lm
+    from repro_torch.launch.train import train
     _no_cuda(monkeypatch)
     suite = ProblemSuite.random(n=8, density=0.5, num_problems=1, seed=0)
     J = suite[0].J_levels
@@ -123,7 +126,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: serve_lm.serve("qwen3-0.6b", 1, 4, 2),
                  lambda: serve_lm.serve("olmoe-1b-7b", 1, 4, 2),
                  lambda: serve_lm.serve("zamba2-7b", 1, 4, 2),
-                 lambda: serve_lm.serve("hubert-xlarge", 1, 4, 2)):
+                 lambda: serve_lm.serve("hubert-xlarge", 1, 4, 2),
+                 lambda: train("qwen3-0.6b", 1, 2, 8, str(tmp_path))):
         with pytest.raises(RuntimeError, match="torch_device='cpu'"):
             call()
     # asked for by name, the CPU works
@@ -185,6 +189,23 @@ def test_serve_lm_cli_raises_without_cuda_unless_asked_for_the_cpu():
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "tok/s), sample:" in out.stdout
+
+
+def test_train_cli_raises_without_cuda_unless_asked_for_the_cpu(tmp_path):
+    env = _env(CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen3-0.6b", "--steps", "2", "--batch", "2", "--seq", "16",
+           "--ckpt-dir", str(tmp_path / "ckpt")]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "torch_device='cpu'" in out.stderr
+    assert not (tmp_path / "ckpt").exists()
+    out = subprocess.run(cmd + ["--torch-device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "final loss" in out.stdout
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
