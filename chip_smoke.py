@@ -122,12 +122,25 @@ exits nonzero:
                 top-8, bfloat16) through serve_lm.serve at batch 4, prompt
                 64, gen 32 with its times and peak memory, bf16's top-1
                 agreement with f32 on the same weights, the serve_lm CLI
-                at full size; one full-size pass of zamba2-7b and rwkv6-3b
-                (serve_lm.serve), llava-next-mistral-7b (576 vision
-                embeddings over a 640-token prompt, batch 2, 8 decode
-                steps) and hubert-xlarge ((2, 500, 1280) frames, bf16 and
-                f32), each with its wall and peak memory.
- 17. train    — the LM trainer: one train step of each family's reduced()
+                at full size in a subprocess; one full-size pass of zamba2-7b
+                and rwkv6-3b (serve_lm.serve), llava-next-mistral-7b
+                (576 vision embeddings over a 640-token prompt, batch 2,
+                8 decode steps) and hubert-xlarge ((2, 500, 1280) frames, bf16 and
+                f32), each with its wall and peak memory. Every model is
+                drawn from seed 0 on a CPU generator; the bf16-vs-f32
+                checks reuse the weights serve drew (a spy on its init).
+ 17. mesh     — seeded weights and the sharding layer: the weights that
+                train's own init (each family's reduced() config, and
+                qwen3-0.6b at full width) and serve's own init (each
+                decoding family's reduced() config) give on the card equal
+                the CPU's for seed 0, bitwise, leaf by leaf (the count of
+                leaves that differ must be 0); the first MoE layer of
+                olmoe-1b-7b at full width (64 experts, top-8, F = 1024) on
+                a (2, 16) prompt in f32 under virtual_mesh((1, tp)) for tp
+                = 1, 2, 4: tp = 1 bitwise equal to the path with no mesh,
+                tp = 2, 4 within rtol 1e-4 / atol 1e-5 of it, routing bitwise at
+                every tp, each tp's ms (CUDA events, median of 5).
+ 18. train    — the LM trainer: one train step of each family's reduced()
                 config in float32 on the card against the CPU from the
                 same state (qwen3-0.6b, olmoe-1b-7b, llava-next-mistral-7b,
                 hubert-xlarge, zamba2-7b at 5 layers, rwkv6-3b; loss,
@@ -140,10 +153,20 @@ exits nonzero:
                 more; losses at rtol 1e-5, run twice, bitwise or not);
                 qwen3-0.6b at full width and depth through
                 launch.train.train (bfloat16, batch 8, seq 512, 20 steps,
-                one checkpoint at step 20): finite losses whose last-5 mean
-                is below the first-5 mean, step ms, tokens/s, the share of
-                the bf16 peak, peak memory, the checkpoint's save and
-                restore seconds and bytes, the restore bitwise.
+                one checkpoint at step 20) under make_host_mesh("cuda"):
+                finite losses whose last-5 mean is below the first-5 mean,
+                one step from the trained state with no mesh active
+                bitwise equal to the same step under the mesh (loss and
+                every leaf of the new state), step ms, tokens/s, model_flops over the step as a share of
+                HW()'s bf16 peak (beside the old 6 x params x tokens), peak
+                memory, the checkpoint's save and restore seconds and
+                bytes, the restore with shardings= bitwise; one full step
+                under roofline.op_cost.analyze (FLOPs, bytes, the report's
+                terms against HW()'s H100 constants, useful FLOPs ratio,
+                the measured step over the bound); MoE at top-8 (reduced
+                olmoe-1b-7b, top_k = 8): two steps from one state and the
+                gradient repeated on the card, bitwise or not, beside the
+                same check with the token gather as torch.gather.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -2256,7 +2279,7 @@ def phase_lm():
 
     cfg = get_config(LM_ARCH).reduced()
     model = build(cfg)
-    cpu = model.init(torch.Generator().manual_seed(0))
+    cpu = model.init(torch.Generator().manual_seed(0), "cpu")
 
     card = lm_params_from_arrays(arrays(cpu), cfg, torch_device="cuda")
     prompts, _ = SyntheticLM(cfg.vocab_size, 16, 2).batch_at(0)
@@ -2275,8 +2298,9 @@ def phase_lm():
 
     full = get_config(LM_ARCH)
     torch.cuda.reset_peak_memory_stats()
-    out = serve_lm.serve(LM_ARCH, reduced=False, torch_device="cuda",
-                         **LM_SERVE)
+    with served_params() as drawn:
+        out = serve_lm.serve(LM_ARCH, reduced=False, torch_device="cuda",
+                             **LM_SERVE)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "lm", "serve": {
         "arch": LM_ARCH, "n_layers": full.n_layers, "d_model": full.d_model,
@@ -2288,9 +2312,9 @@ def phase_lm():
     check(out["generated"].shape == (LM_SERVE["batch"], LM_SERVE["gen"]),
           f"serve returned {out['generated'].shape}")
 
-    # the served weights again (serve draws them from seed 0 on the card),
-    # run in bfloat16 and in float32 over the same prompts
-    params = build(full).init(torch.Generator(device="cuda").manual_seed(0))
+    # the served weights (serve drew them from seed 0), run in bfloat16
+    # and in float32 over the same prompts
+    params = drawn.pop()
     prompts, _ = SyntheticLM(full.vocab_size, LM_SERVE["prompt_len"],
                              LM_SERVE["batch"]).batch_at(0)
     prompts = torch.as_tensor(prompts, device="cuda")
@@ -2388,6 +2412,44 @@ def first_routing(seen):
         moe.route = real
 
 
+@contextlib.contextmanager
+def served_params():
+    """Within the block, every model that ``serve_lm.serve`` builds appends
+    the parameters its ``init`` drew to the yielded list."""
+    from repro_torch.launch import serve_lm
+    real, drawn = serve_lm.build, []
+
+    def build(cfg):
+        model = real(cfg)
+
+        def init(gen, torch_device):
+            drawn.append(model.init(gen, torch_device))
+            return drawn[-1]
+        return dataclasses.replace(model, init=init)
+    serve_lm.build = build
+    try:
+        yield drawn
+    finally:
+        serve_lm.build = real
+
+
+@contextlib.contextmanager
+def trained_states():
+    """Within the block, every state ``launch.train.train`` initialises is
+    appended to the yielded list."""
+    from repro_torch.launch import train as train_mod
+    real, made = train_mod.init_train_state, []
+
+    def init_train_state(*args, **kw):
+        made.append(real(*args, **kw))
+        return made[-1]
+    train_mod.init_train_state = init_train_state
+    try:
+        yield made
+    finally:
+        train_mod.init_train_state = real
+
+
 def free_cuda():
     import gc
 
@@ -2406,9 +2468,10 @@ def phase_lm_families():
     (2) olmoe-1b-7b at full width and depth through ``serve_lm.serve``
     (bf16 over f32 weights, batch 4, prompt 64, gen 32): times, peak
     memory, finite logits; on the same weights bf16's top-1 agreement with
-    f32; the serve_lm CLI at full size. (3) One full-size pass of each
-    other family: zamba2-7b and rwkv6-3b through ``serve_lm.serve`` (the
-    prompt warmed token by token), llava-next-mistral-7b's prefill of 576
+    f32; the serve_lm CLI at full size. (3) One full-size pass
+    of each other family: zamba2-7b and rwkv6-3b through
+    ``serve_lm.serve`` (the prompt warmed token by token),
+    llava-next-mistral-7b's prefill of 576
     vision embeddings spliced over a 640-token prompt at batch 2 and 8
     decode steps, hubert-xlarge's forward on (2, 500, 1280) frames in bf16
     and f32; each with its wall and peak memory."""
@@ -2425,7 +2488,7 @@ def phase_lm_families():
     for arch in LM_FAMILIES:
         cfg = family_cfg(arch)
         model = build(cfg)
-        cpu = model.init(torch.Generator().manual_seed(0))
+        cpu = model.init(torch.Generator().manual_seed(0), "cpu")
         card = lm_params_from_arrays(arrays(cpu), cfg, torch_device="cuda")
         B, S = 2, 16
         seen_cpu, seen_card = [], []
@@ -2462,8 +2525,9 @@ def phase_lm_families():
     # olmoe-1b-7b at full width and depth, served
     full = family_cfg(LM_MOE_ARCH, full=True)
     torch.cuda.reset_peak_memory_stats()
-    out = serve_lm.serve(LM_MOE_ARCH, reduced=False, torch_device="cuda",
-                         **LM_SERVE)
+    with served_params() as drawn:
+        out = serve_lm.serve(LM_MOE_ARCH, reduced=False, torch_device="cuda",
+                             **LM_SERVE)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "lm_families", "serve": {
         "arch": LM_MOE_ARCH, "n_layers": full.n_layers,
@@ -2478,9 +2542,9 @@ def phase_lm_families():
           f"serve returned {out['generated'].shape}")
     check(out["logits_finite"], f"{LM_MOE_ARCH}: non-finite logits served")
 
-    # the served weights again (serve draws them from seed 0 on the card),
-    # run in bfloat16 and in float32 over the same prompts
-    params = build(full).init(torch.Generator(device="cuda").manual_seed(0))
+    # the served weights (serve drew them from seed 0), run in bfloat16
+    # and in float32 over the same prompts
+    params = drawn.pop()
     n_params = sum(t.numel() for t in leaves(params))
     prompts, _ = SyntheticLM(full.vocab_size, LM_SERVE["prompt_len"],
                              LM_SERVE["batch"]).batch_at(0)
@@ -2540,7 +2604,7 @@ def phase_lm_families():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
     batch = family_batch(cfg, LLAVA_PASS["batch"], LLAVA_PASS["prompt_len"],
                          "cuda")
     with torch.inference_mode():
@@ -2574,7 +2638,7 @@ def phase_lm_families():
     cfg = family_cfg("hubert-xlarge", full=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    params = build(cfg).init(torch.Generator().manual_seed(0), "cuda")
     batch = family_batch(cfg, *HUBERT_FRAMES, "cuda")
     hid, walls = {}, {}
     with torch.inference_mode():
@@ -2599,6 +2663,125 @@ def phase_lm_families():
     free_cuda()
 
 
+#: the MoE slices: olmoe-1b-7b's first layer at full width, a (2, 16)
+#: prompt, float32, tp = 1, 2, 4 (tolerances: tests/test_torch_moe.py's)
+MOE_SLICE_INPUT, MOE_SLICE_TPS, MOE_TOL = (2, 16), (1, 2, 4), (1e-4, 1e-5)
+
+
+def leaves_differ(card, cpu):
+    """(leaves, leaves whose card bytes differ from the CPU's) of two trees
+    of one structure."""
+    import torch
+
+    from repro_torch.pytree import leaves
+    pairs = list(zip(leaves(card), leaves(cpu)))
+    return len(pairs), sum(not torch.equal(a.cpu(), b) for a, b in pairs)
+
+
+def phase_mesh():
+    """Seeded weights on every device and the sharding layer on the card
+    (no kernel of its own: the reference's sharding is plain JAX). (1) The
+    weights train's own init (a spy on ``launch.train.init_train_state``)
+    and serve's own init (a spy on the model ``serve_lm.serve`` builds)
+    draw for seed 0 on the card, against the same calls on the CPU, leaf
+    by leaf: every family's reduced() config, qwen3-0.6b at full width
+    (train's init, whose wall on each device is printed: the host's draw
+    rate). (2) olmoe-1b-7b's first MoE layer at full width under
+    virtual meshes (1, tp): tp = 1 bitwise equal to the path with no mesh, tp
+    = 2, 4 within MOE_TOL, routing bitwise (a spy on ``moe.route``), each
+    tp's ms (CUDA events, median of 5)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_lm
+    from repro_torch.launch.mesh import activate_mesh, virtual_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import moe
+    from repro_torch.pytree import leaves
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, full in ([(a, False) for a in TRAIN_FAMILIES]
+                           + [(LM_ARCH, True)]):
+            states, walls = {}, {}
+            for dev in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                with trained_states() as made:
+                    train(arch, steps=0, batch=1, seq=8, reduced=not full,
+                          ckpt_dir=os.path.join(tmp, f"{arch}-{dev}"),
+                          torch_device=dev)
+                torch.cuda.synchronize()
+                walls[dev] = time.perf_counter() - t0
+                states[dev] = made.pop().params
+            n, bad = leaves_differ(states["cuda"], states["cpu"])
+            rows.append({"arch": arch, "entry": "train",
+                         "config": "full width" if full else "reduced",
+                         "params": sum(t.numel() for t in
+                                       leaves(states["cpu"])),
+                         "init_s": walls, "leaves": n, "leaves_differ": bad})
+            del states
+            free_cuda()
+        for arch in TRAIN_FAMILIES:
+            if not get_config(arch).has_decode:
+                continue
+            drawn = {}
+            for dev in ("cuda", "cpu"):
+                with served_params() as got:
+                    serve_lm.serve(arch, batch=1, prompt_len=2, gen=1,
+                                   torch_device=dev)
+                drawn[dev] = got.pop()
+            n, bad = leaves_differ(drawn["cuda"], drawn["cpu"])
+            rows.append({"arch": arch, "entry": "serve", "config": "reduced",
+                         "leaves": n, "leaves_differ": bad})
+    emit({"phase": "mesh", "weights_card_vs_cpu": rows,
+          "leaves_differ_total": sum(r["leaves_differ"] for r in rows)})
+    for r in rows:
+        check(r["leaves_differ"] == 0, f"seed-0 weights differ card vs CPU: "
+              f"{r}")
+    free_cuda()
+
+    cfg = get_config(LM_MOE_ARCH)
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v.cuda() for k, v in moe.init_moe(
+        gen, cfg.d_model, cfg.d_ff, cfg.n_experts).items()}
+    x = torch.randn((*MOE_SLICE_INPUT, cfg.d_model), generator=gen).cuda()
+
+    def run():
+        return moe.apply_moe(p, x, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+    with torch.inference_mode():
+        with first_routing([]) as seen:
+            whole = run()
+        row = {"arch": LM_MOE_ARCH, "layer": "blocks.ffn[0]",
+               "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+               "d_ff": cfg.d_ff, "input": list(MOE_SLICE_INPUT),
+               "dtype": "float32",
+               "unsliced_ms": statistics.median(cuda_ms(run, 5)), "tp": {}}
+        for tp in MOE_SLICE_TPS:
+            with activate_mesh(virtual_mesh((1, tp), ("data", "model"),
+                                            "cuda")):
+                with first_routing([]) as seen_tp:
+                    out = run()
+                ms = statistics.median(cuda_ms(run, 5))
+            err = float((out - whole).abs().max())
+            row["tp"][tp] = {
+                "ms": ms, "max_abs_err": err,
+                "bitwise": bool(torch.equal(out, whole)),
+                "within_tol": bool(torch.allclose(out, whole,
+                                                  rtol=MOE_TOL[0],
+                                                  atol=MOE_TOL[1])),
+                "routing_bitwise": all(
+                    torch.equal(seen_tp[0][k], seen[0][k])
+                    for k in ("keep", "idx", "dest"))}
+    emit({"phase": "mesh", "moe_slices": row})
+    check(row["tp"][1]["bitwise"], "MoE slices at tp = 1 not bitwise")
+    for tp, r in row["tp"].items():
+        check(r["within_tol"] and r["routing_bitwise"],
+              f"MoE slices at tp = {tp}: {r}")
+    del p, x, whole, out
+    free_cuda()
+
+
 #: one reduced train step of each family in float32, card against CPU
 #: from the same state; tolerances fixed before the first chip run: the
 #: port tests' bounds against the reference (tests/test_torch_train.py)
@@ -2608,8 +2791,10 @@ TRAIN_TOL = dict(loss_rtol=1e-4, loss_atol=1e-5, grad_norm_rtol=1e-4,
                  grad_rtol=1e-3, grad_atol_of_max=1e-4)
 #: the reference's restart protocol (tests/test_train_integration.py)
 RESTART = dict(batch=4, seq=64, ckpt_every=10)
-#: qwen3-0.6b at full width and depth: 751,894,528 parameters
+#: qwen3-0.6b at full width and depth
 TRAIN_FULL = dict(steps=20, batch=8, seq=512)
+#: qwen3-0.6b's parameter count (checked against the trained state)
+TRAIN_FULL_PARAMS = 751_894_528
 
 
 def train_batch(cfg, B, S, dev, seed=0):
@@ -2749,12 +2934,11 @@ def mamba2_full_width_grads():
     from repro_torch.models.common import rms_norm
     from repro_torch.models.mamba2 import apply_mamba2, init_mamba2
     cfg = family_cfg("zamba2-7b", full=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    p = init_mamba2(gen, cfg.d_model, expand=cfg.ssm_expand,
-                    head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state,
-                    conv_kernel=cfg.conv_kernel)
-    x = rms_norm(torch.randn((1, 256, cfg.d_model), generator=gen,
-                             device="cuda"),
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v.cuda() for k, v in init_mamba2(
+        gen, cfg.d_model, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+        d_state=cfg.ssm_state, conv_kernel=cfg.conv_kernel).items()}
+    x = rms_norm(torch.randn((1, 256, cfg.d_model), generator=gen).cuda(),
                  torch.ones(cfg.d_model, device="cuda"))
     out = {}
     for dtype in ("float32", "bfloat16"):
@@ -2769,6 +2953,66 @@ def mamba2_full_width_grads():
                 "forward_finite": bool(torch.isfinite(y).all()),
                 "grad_finite": all(bool(torch.isfinite(g).all())
                                    for g in grads)}
+    return out
+
+
+def gather_dispatch(x, r, n_experts, cap):
+    """``models.moe._dispatch`` with the token gather as ``torch.gather``,
+    whose backward adds a token's k repeats atomically on CUDA."""
+    import torch
+    b, _, d = x.shape
+    xg = torch.gather(x, 1, r["st"][..., None].expand(-1, -1, d))
+    buf = torch.zeros((b, n_experts * cap, d), dtype=x.dtype,
+                      device=x.device)
+    buf.scatter_add_(1, r["dest"][..., None].expand(-1, -1, d),
+                     torch.where(r["keep"][..., None], xg,
+                                 torch.zeros((), dtype=x.dtype,
+                                             device=x.device)))
+    return buf.reshape(b, n_experts, cap, d)
+
+
+def moe_top8_determinism():
+    """olmoe-1b-7b reduced() with top_k = 8 (8 experts) in float32 on the
+    card: two train steps from one state and the gradient computed twice,
+    bitwise or not (loss, every updated leaf, every gradient leaf); then
+    the same with the token gather as ``torch.gather`` (the dispatch
+    before ``F.embedding``), for contrast."""
+    import torch
+
+    from repro_torch.models import build, moe
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import leaves
+    from repro_torch.training import init_train_state, make_train_step
+    cfg = dataclasses.replace(family_cfg(LM_MOE_ARCH), top_k=8)
+    check(cfg.n_experts >= 8, "the top-8 check needs 8 experts or more")
+    model = build(cfg)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), "cuda")
+    batch = train_batch(cfg, 4, 64, "cuda")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3), 10_000, 5)
+    out = {"arch": LM_MOE_ARCH, "config": "reduced, top_k=8, float32",
+           "n_experts": cfg.n_experts, "batch": [4, 64]}
+    real = moe._dispatch
+    try:
+        for name, dispatch in (("embedding", real),
+                               ("gather", gather_dispatch)):
+            moe._dispatch = dispatch
+            (s1, m1), (s2, m2) = step(state, batch), step(state, batch)
+            g1, g2 = (grads_of(model, state.params, batch) for _ in range(2))
+            out[name] = {
+                "step_loss_bitwise": bool(torch.equal(m1["loss"],
+                                                      m2["loss"])),
+                "step_leaves_differ": sum(not torch.equal(a, b) for a, b in
+                                          zip(leaves(s1), leaves(s2))),
+                "grad_leaves": len(g1),
+                "grad_leaves_differ": sum(not torch.equal(g1[k], g2[k])
+                                          for k in g1)}
+            out[name]["bitwise"] = (out[name]["step_loss_bitwise"] and
+                                    out[name]["step_leaves_differ"] == 0 and
+                                    out[name]["grad_leaves_differ"] == 0)
+    finally:
+        moe._dispatch = real
+    check(out["embedding"]["bitwise"],
+          f"top-8 MoE step not bitwise on the card: {out['embedding']}")
     return out
 
 
@@ -2788,18 +3032,24 @@ def phase_train():
     memory, the checkpoint's save and restore seconds and bytes, and the
     restore bitwise into a fresh state; two more steps from the saved
     state under torch.profiler (kernels a step, the device's busy
-    share)."""
+    share); one step from the saved state with no mesh active against
+    the same step under the run's mesh, bitwise."""
     import shutil
 
     import numpy as np
     import torch
 
     from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import param_shardings
+    from repro_torch.launch.mesh import activate_mesh, make_host_mesh
     from repro_torch.launch.train import train
     from repro_torch.models import build
     from repro_torch.optim import AdamWConfig
     from repro_torch.pytree import leaves, tree_map
+    from repro_torch.roofline import (HW, analyze, count_params, model_flops,
+                                      roofline_report)
     from repro_torch.training import init_train_state, make_train_step
 
     check(not torch.backends.cuda.matmul.allow_tf32 and
@@ -2807,7 +3057,8 @@ def phase_train():
     for arch in TRAIN_FAMILIES:
         cfg = family_cfg(arch)
         model = build(cfg)
-        cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
+        cpu = init_train_state(cfg, torch.Generator().manual_seed(0),
+                               "cpu")
         card = tree_map(lambda t: t.cuda(), cpu)
         B, S = 2, 32
         b_cpu, b_card = (train_batch(cfg, B, S, d) for d in ("cpu", "cuda"))
@@ -2846,6 +3097,7 @@ def phase_train():
               f"at {worst} x its allowed error")
     del cpu, card, g_cpu, g_card, g_again
     emit({"phase": "train", "mamba2_full_width": mamba2_full_width_grads()})
+    emit({"phase": "train", "moe_top8_determinism": moe_top8_determinism()})
     free_cuda()
 
     runs = []
@@ -2880,8 +3132,7 @@ def phase_train():
         "straight_runs_bitwise": runs[0] == runs[1]}})
 
     full = family_cfg(LM_ARCH, full=True)
-    n_params = param_count(full)
-    need = 3 * 4 * n_params                      # params, m and v in f32
+    need = 3 * 4 * TRAIN_FULL_PARAMS            # params, m and v in f32
     record = {"step_s": [], "save_s": []}
     with tempfile.TemporaryDirectory() as tmp:
         free = shutil.disk_usage(tmp).free
@@ -2893,8 +3144,9 @@ def phase_train():
         free_cuda()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        mesh = make_host_mesh("cuda")
         with train_spies(record):
-            losses = train(LM_ARCH, ckpt_dir=tmp, reduced=False,
+            losses = train(LM_ARCH, ckpt_dir=tmp, reduced=False, mesh=mesh,
                            torch_device="cuda", **TRAIN_FULL)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -2902,18 +3154,35 @@ def phase_train():
         ckpt_bytes = os.path.getsize(path)
         tokens, labels = SyntheticLM(full.vocab_size, TRAIN_FULL["seq"],
                                      TRAIN_FULL["batch"]).batch_at(0)
-        prof = profile_train_steps(
-            make_train_step(full, AdamWConfig(lr=1e-3), 10_000, 5), saved,
-            {"tokens": torch.as_tensor(tokens, device="cuda"),
-             "labels": torch.as_tensor(labels, device="cuda")})
+        batch = {"tokens": torch.as_tensor(tokens, device="cuda"),
+                 "labels": torch.as_tensor(labels, device="cuda")}
+        step_fn = make_train_step(full, AdamWConfig(lr=1e-3), 10_000, 5)
+        prof = profile_train_steps(step_fn, saved, batch)
         emit({"phase": "train", "profile": {
             "arch": LM_ARCH, **TRAIN_FULL, **prof}})
+        cost = analyze(step_fn, saved, batch)
+        train_shape = ShapeConfig("train_8x512", TRAIN_FULL["seq"],
+                                  TRAIN_FULL["batch"], "train")
+        useful = model_flops(full, train_shape, saved.params)
+        n_params = count_params(saved.params)
+        # one step from the trained state with no mesh active against the
+        # same step under the mesh: loss, every leaf
+        plain, m_plain = step_fn(saved, batch)
+        with activate_mesh(mesh):
+            meshed, m_mesh = step_fn(saved, batch)
+        mesh_step = {
+            "loss_no_mesh": float(m_plain["loss"]),
+            "loss_mesh": float(m_mesh["loss"]),
+            "leaves": len(leaves(plain)),
+            "leaves_differ": sum(not torch.equal(a, b) for a, b in
+                                 zip(leaves(meshed), leaves(plain)))}
+        del plain, meshed
         free_cuda()
-        template = init_train_state(
-            full, torch.Generator(device="cuda").manual_seed(1))
+        template = tree_map(torch.empty_like, saved)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        restored, meta = Checkpointer(tmp).restore(template)
+        restored, meta = Checkpointer(tmp).restore(
+            template, shardings=param_shardings(mesh, full, template))
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t1
         same = all(torch.equal(a, b) for a, b in
@@ -2926,6 +3195,22 @@ def phase_train():
     tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
     finite = bool(np.all(np.isfinite(losses)))
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    hw = HW()
+    report = roofline_report(cost, hw, chips=1, model_flops_total=useful)
+    emit({"phase": "train", "roofline": {
+        "arch": LM_ARCH, "shape": dataclasses.asdict(train_shape),
+        "hw": dataclasses.asdict(hw), "flops": report["hlo_flops_per_device"],
+        "bytes": report["hlo_bytes_per_device"],
+        "t_compute_s": report["t_compute_s"],
+        "t_memory_s": report["t_memory_s"],
+        "t_collective_s": report["t_collective_s"],
+        "dominant": report["dominant"],
+        "bound_step_s": report["bound_step_s"],
+        "model_flops": useful,
+        "useful_flops_ratio": report["useful_flops_ratio"],
+        "roofline_fraction": report["roofline_fraction"],
+        "step_s_median": med,
+        "step_over_bound": med / report["bound_step_s"]}})
     emit({"phase": "train", "full_size": {
         "arch": LM_ARCH, "n_layers": full.n_layers, "d_model": full.d_model,
         "vocab": full.vocab_size, "dtype": full.dtype, "params": n_params,
@@ -2934,10 +3219,13 @@ def phase_train():
         "mean_first_5": first, "mean_last_5": last, "losses_finite": finite,
         "step_ms_median_6_20": 1e3 * med, "step_ms_first": 1e3 * step_s[0],
         "tokens_per_s": tokens / med,
-        "bf16_peak_share": 6 * n_params * tokens / med / PEAK_OPS["bfloat16"],
-        "bf16_peak_share_formula": "6 x params x tokens a step / median "
-                                   "step s / 989e12 (attention and remat "
-                                   "recompute not counted)",
+        "bf16_peak_share": useful / med / hw.peak_flops,
+        "bf16_peak_share_formula": "roofline.model_flops (6 x active "
+                                   "params x tokens) / median step s / "
+                                   "HW().peak_flops",
+        "bf16_peak_share_6nt": 6 * n_params * tokens / med / hw.peak_flops,
+        "mesh": dict(mesh.shape),
+        "mesh_step_vs_no_mesh": mesh_step,
         "peak_allocated_gib": peak / 2**30,
         "checkpoint_bytes": ckpt_bytes, "save_s": record["save_s"],
         "restore_s": restore_s, "restored_leaves": n_leaves,
@@ -2950,24 +3238,19 @@ def phase_train():
           f"{LM_ARCH} full size: expected one checkpoint at step "
           f"{TRAIN_FULL['steps']}")
     check(same, f"{LM_ARCH} full size: the restored state differs")
-
-
-def param_count(cfg):
-    """Parameters of ``cfg``, counted off one init on the card."""
-    import torch
-
-    from repro_torch.models import build
-    from repro_torch.pytree import leaves
-    params = build(cfg).init(torch.Generator(device="cuda").manual_seed(0))
-    n = sum(t.numel() for t in leaves(params))
-    del params
-    free_cuda()
-    return n
+    check(n_params == TRAIN_FULL_PARAMS,
+          f"{LM_ARCH}: {n_params} parameters, not {TRAIN_FULL_PARAMS}")
+    check(mesh_step["loss_mesh"] == mesh_step["loss_no_mesh"] and
+          mesh_step["leaves_differ"] == 0,
+          f"{LM_ARCH} full size: the step under make_host_mesh differs from "
+          f"the step with no mesh: {mesh_step}")
+    check(report["useful_flops_ratio"] < 1.0,
+          f"{LM_ARCH}: model_flops above the counted FLOPs")
 
 
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
           "gset", "sb_timing", "search", "zoo", "physics", "serve",
-          "fabric", "lm", "lm_families", "train")
+          "fabric", "lm", "lm_families", "mesh", "train")
 
 
 def main(argv=None) -> int:
@@ -3014,6 +3297,7 @@ def main(argv=None) -> int:
             "fabric": phase_fabric,
             "lm": phase_lm,
             "lm_families": phase_lm_families,
+            "mesh": phase_mesh,
             "train": phase_train,
         }
         out = {name: run[name]() for name in PHASES if name in phases}

@@ -13,8 +13,12 @@ whose manifest is complete.
 Restore loads numpy arrays and checks every key and shape against a
 template tree; a tensor leaf of the template gets its array back as a
 tensor on the template leaf's device, any other leaf as the numpy array.
-The format carries no device. The reference's ``shardings=`` argument
-(re-placing leaves on a mesh) has no counterpart until the sharding slice.
+With ``shardings`` (a tree of ``distributed.sharding.NamedSharding`` of
+the template's structure, as ``param_shardings`` gives) each tensor is
+then placed by its sharding against the CURRENT mesh: copied to the mesh's
+device on a one-device or virtual mesh, distributed over the ranks on a
+mesh of processes. The format carries no device, which is what lets a
+checkpoint saved on one mesh restore onto another.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import place_tree
 from ..pytree import flatten_with_paths, unflatten
 
 
@@ -78,12 +83,16 @@ def save_pytree(path: str, tree, metadata: Optional[dict] = None):
                 os.remove(f)
 
 
-def load_pytree(path: str, template):
-    """The tree saved at ``path``, in ``template``'s structure; raises
-    ``KeyError`` for a missing key, ``ValueError`` for a shape mismatch."""
+def load_pytree(path: str, template, shardings=None):
+    """The tree saved at ``path``, in ``template``'s structure, each tensor
+    placed by ``shardings`` when given; raises ``KeyError`` for a missing
+    key, ``ValueError`` for a shape mismatch."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    return _unflatten(template, flat)
+    tree = _unflatten(template, flat)
+    if shardings is not None:
+        tree = place_tree(tree, shardings)
+    return tree
 
 
 class Checkpointer:
@@ -112,13 +121,14 @@ class Checkpointer:
                     steps.append(s)
         return max(steps) if steps else None
 
-    def restore(self, template, step: Optional[int] = None):
-        """(tree, manifest) of ``step`` (default the latest), or (None,
-        None) when there is no checkpoint."""
+    def restore(self, template, step: Optional[int] = None, shardings=None):
+        """(tree, manifest) of ``step`` (default the latest), each tensor
+        placed by ``shardings`` when given, or (None, None) when there is
+        no checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
-        tree = load_pytree(self._path(step), template)
+        tree = load_pytree(self._path(step), template, shardings)
         with open(self._path(step) + ".meta.json") as f:
             meta = json.load(f)
         return tree, meta

@@ -1,6 +1,7 @@
-"""Fleet membership for the serve tier: ``WorkerSet`` and
-``rendezvous_route`` (the reference's ``distributed.elastic``, less its
-mesh rebuild, which waits for the port's sharding).
+"""Fleet membership for the serve tier (``WorkerSet``,
+``rendezvous_route``) and the mesh rebuild after a membership change
+(``largest_mesh_shape``, ``remesh``): the reference's
+``distributed.elastic``.
 
 A ``WorkerSet`` tracks live solve workers (join / leave / mark_dead) and
 ``rendezvous_route`` picks the owner of each batch key by highest-random-
@@ -12,8 +13,16 @@ balance; HRW is balanced by construction at fleet sizes of 2–16).
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .sharding import Mesh, virtual_mesh
+
+log = logging.getLogger("repro_torch.elastic")
 
 
 def rendezvous_route(key: str, members: Sequence[str]) -> str:
@@ -74,3 +83,36 @@ class WorkerSet:
     def is_live(self, worker_id: str) -> bool:
         with self._lock:
             return worker_id in self._live
+
+
+def largest_mesh_shape(n_devices: int, model_parallel: int,
+                       pods: int = 1) -> tuple:
+    """Keep TP fixed (it's bound to weight shapes), shrink/grow data."""
+    per_pod = n_devices // pods
+    data = max(per_pod // model_parallel, 1)
+    shape = (pods, data, model_parallel) if pods > 1 else (data, model_parallel)
+    return shape
+
+
+def remesh(available_devices: Sequence, model_parallel: int, pods: int = 1,
+           torch_device: str | torch.device = "cuda") -> Mesh:
+    """The largest mesh of ``largest_mesh_shape`` over the first of
+    ``available_devices``, with the reference's axis names. Over the ranks
+    of an initialised ``torch.distributed`` world (``available_devices``
+    are ranks) it is a mesh of processes; without a world, a virtual mesh
+    of that shape on ``torch_device``."""
+    import torch.distributed as dist
+    n = len(available_devices)
+    shape = largest_mesh_shape(n, model_parallel, pods)
+    used = int(np.prod(shape))
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    log.info("elastic remesh: %d devices -> mesh %s (%d used)", n, shape, used)
+    mesh = virtual_mesh(shape, axes, torch_device)
+    if not dist.is_initialized():
+        return mesh
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = torch.as_tensor(
+        np.asarray(available_devices[:used], dtype=np.int64).reshape(shape))
+    return Mesh(axes, shape, mesh.torch_device,
+                DeviceMesh(mesh.torch_device.type, ranks,
+                           mesh_dim_names=axes))

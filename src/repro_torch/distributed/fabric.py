@@ -55,6 +55,9 @@ import torch
 
 from ..device import resolve_device
 
+#: the fabric mesh axis name: one entry per virtual die
+FABRIC_AXIS = "fabric"
+
 
 @dataclasses.dataclass(frozen=True)
 class FabricMesh:

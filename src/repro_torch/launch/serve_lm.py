@@ -4,9 +4,11 @@ decode (the reference's ``launch.serve_lm``).
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch olmoe-1b-7b \
         --batch 4 --prompt-len 64 --gen 32 [--full-size] [--torch-device cpu]
 
-Random weights drawn from a seed (``serve(seed=0)``; nothing is
-downloaded); the prompts are ``SyntheticLM`` batch 0. Every family of the
-registry but ``ising``: dense, moe and vlm prefill the prompt in one pass
+Random weights drawn from a seed on a CPU generator and copied to the
+device, so one seed serves the same weights on every device
+(``serve(seed=0)``; nothing is downloaded); the prompts are
+``SyntheticLM`` batch 0. Every family of the registry but ``ising``:
+dense, moe and vlm prefill the prompt in one pass
 (vlm with no vision embeddings, as in the reference); the recurrent
 families (hybrid, rwkv) warm their state token by token through
 ``decode_step``; the encoder (hubert) has no decode and exits with the
@@ -48,7 +50,7 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int,
     model = build(cfg)
     if model.decode_step is None:
         raise SystemExit(f"{arch} is encoder-only; no decode path")
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = model.init(torch.Generator().manual_seed(seed), dev)
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=prompt_len,
                      global_batch=batch)
     prompts, _ = ds.batch_at(0)

@@ -16,8 +16,11 @@ non-finite loss) and is timed into a ``StragglerDetector``.
 Reduced configs train in float32; ``--full-size`` keeps the config's
 dtype (bfloat16 activations over float32 weights). Runs on
 ``torch_device`` (default ``cuda``; without CUDA it raises unless given
-``cpu``). The reference's ``mesh=`` argument has no counterpart until the
-sharding slice: the port trains on one device.
+``cpu``), under ``mesh`` (default ``make_host_mesh(torch_device)``, the
+card's (1, 1)): the mesh is ambient while the run lasts, the state is
+placed by ``param_shardings`` and restored with those shardings. The
+weights are drawn from seed 0 on a CPU generator, so every device starts
+from the same weights.
 """
 from __future__ import annotations
 
@@ -35,21 +38,34 @@ from ..configs import get_config
 from ..data import DataState, SyntheticLM
 from ..device import resolve_device
 from ..distributed.fault_tolerance import StragglerDetector, resilient_step
+from ..distributed.sharding import param_shardings, place_tree
 from ..optim import AdamWConfig
 from ..training.steps import init_train_state, make_train_step
+from .mesh import activate_mesh, make_host_mesh
 
 log = logging.getLogger("repro_torch.train")
 
 
 def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: str,
-          ckpt_every: int = 50, reduced: bool = True,
+          ckpt_every: int = 50, reduced: bool = True, mesh=None,
           inject_failure_at: int = -1,
           torch_device: str | torch.device = "cuda"):
     """Train ``arch`` to ``steps`` total steps (resuming from ``ckpt_dir``
-    when it holds a checkpoint); returns the loss of every step this call
-    ran. ``inject_failure_at``: the step whose batch is replaced, once, by
-    an all-masked one."""
+    when it holds a checkpoint) under ``mesh`` on ``torch_device``; returns
+    the loss of every step this call ran. ``inject_failure_at``: the step
+    whose batch is replaced, once, by an all-masked one."""
     dev = resolve_device(torch_device)
+    mesh = mesh if mesh is not None else make_host_mesh(dev)
+    if mesh.torch_device != dev:
+        raise ValueError(f"mesh is on {mesh.torch_device}, torch_device is "
+                         f"{dev}")
+    with activate_mesh(mesh):
+        return _train(arch, steps, batch, seq, ckpt_dir, ckpt_every, reduced,
+                      mesh, inject_failure_at, dev)
+
+
+def _train(arch, steps, batch, seq, ckpt_dir, ckpt_every, reduced, mesh,
+           inject_failure_at, dev):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -59,21 +75,23 @@ def train(arch: str, steps: int, batch: int, seq: int, ckpt_dir: str,
     ckpt = Checkpointer(ckpt_dir)
     detector = StragglerDetector()
 
-    state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    shardings = param_shardings(mesh, cfg, state)
+    state = place_tree(state, shardings)
     # schedule horizon fixed (NOT tied to `steps`) so a restarted run
     # replays the exact same lr sequence as an uninterrupted one
     step_fn = make_train_step(cfg, AdamWConfig(lr=1e-3), total_steps=10_000,
                               warmup_steps=5)
 
     data_state = DataState()
-    restored, meta = ckpt.restore(state)
+    restored, meta = ckpt.restore(state, shardings=shardings)
     if restored is not None:
         state = restored
         data_state.step = int(meta.get("data_step", meta["step"]))
         log.info("restored from step %d", meta["step"])
 
     def restore_fn():
-        r, m = ckpt.restore(state)
+        r, m = ckpt.restore(state, shardings=shardings)
         if r is None:
             return state
         data_state.step = int(m.get("data_step", m["step"]))

@@ -1,14 +1,15 @@
-"""Shared building blocks for the model zoo: norms, activations, RoPE, inits
-(the reference's ``models.common``).
+"""Shared building blocks for the model zoo: the ambient mesh and its
+logical axes, norms, activations, RoPE, inits (the reference's
+``models.common``).
 
 Parameters are plain nested dicts of tensors. Every init function takes an
-explicit ``torch.Generator``, whose device is the device of what it makes.
+explicit CPU ``torch.Generator`` and draws on the CPU; a family's
+``init_params`` copies each drawn layer to its ``torch_device``. torch's
+CPU and CUDA generators give different numbers for one seed, so drawing
+on the CPU is what makes one seed give the same weights, bit for bit, on
+every device (as the reference's ``PRNGKey`` does on every backend).
 Dtype policy: params fp32, activations cast to ``config.dtype`` (bf16 by
 default), norms computed in fp32.
-
-The reference's sharding helpers (``active_mesh``, ``logical``, ``shard``)
-place tensors on a JAX mesh; they have no counterpart yet and go with
-``distributed/sharding.py`` to a later slice (ROADMAP queue 1, step 5).
 """
 from __future__ import annotations
 
@@ -16,6 +17,67 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..distributed.sharding import ACTIVE_MESH, placements
+
+
+# --------------------------------------------------------------------------
+# Sharding helpers: logical axes resolved against the active mesh.
+# --------------------------------------------------------------------------
+
+BATCH_AXES = ("pod", "data")   # global-batch shards over all data-like axes
+MODEL_AXIS = "model"
+
+
+def active_mesh():
+    """The ambient mesh (``distributed.sharding.ACTIVE_MESH``, set by
+    ``activate_mesh``), or None."""
+    mesh = ACTIVE_MESH.get()
+    return mesh if (mesh is not None and mesh.axis_names) else None
+
+
+def _active_axis_names():
+    mesh = active_mesh()
+    return tuple(mesh.axis_names) if mesh is not None else ()
+
+
+def logical(*axes) -> tuple:
+    """Logical axis names as a spec (a tuple, one entry per dimension)
+    against the ACTIVE mesh.
+
+    'batch' -> every present axis of BATCH_AXES ('data' alone when it is
+    the only one, as the reference's ``PartitionSpec`` spells it), 'model'
+    -> MODEL_AXIS if present, None stays None. Unknown names pass through.
+    """
+    present = _active_axis_names()
+    out = []
+    for a in axes:
+        if a == "batch":
+            ax = tuple(x for x in BATCH_AXES if x in present)
+            out.append(ax if len(ax) > 1 else (ax[0] if ax else None))
+        elif a == "model":
+            out.append(MODEL_AXIS if MODEL_AXIS in present else None)
+        else:
+            out.append(a)
+    return tuple(out)
+
+
+def shard(x, *axes):
+    """``x`` laid out as ``logical(*axes)`` on the active mesh.
+
+    The identity when no mesh is active and on a virtual mesh (all ranks
+    on one device), as a sharding constraint is on a one-device mesh in
+    XLA. On a mesh whose ranks are processes, ``x`` must be a DTensor and
+    is redistributed to the spec's placements."""
+    mesh = active_mesh()
+    if mesh is None or mesh.device_mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        raise TypeError("shard: on a mesh of processes x must be a DTensor, "
+                        f"got {type(x).__name__}")
+    return x.redistribute(mesh.device_mesh,
+                          placements(logical(*axes), mesh.axis_names))
 
 
 # --------------------------------------------------------------------------
@@ -85,13 +147,24 @@ def apply_rope(x, positions, *, fraction: float = 1.0,
 # Initializers
 # --------------------------------------------------------------------------
 
+def cpu_generator(gen: torch.Generator) -> torch.Generator:
+    """``gen``, which must be a CPU generator: weights are drawn on the CPU
+    whatever device they go to."""
+    if gen.device.type != "cpu":
+        raise ValueError(
+            f"weights are drawn on a CPU torch.Generator, got one on "
+            f"{gen.device}; pass torch.Generator().manual_seed(seed) and "
+            "the target device separately")
+    return gen
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                scale: float | None = None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return torch.randn((d_in, d_out), generator=gen, device=gen.device,
+    return torch.randn((d_in, d_out), generator=cpu_generator(gen),
                        dtype=torch.float32) * scale
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int):
-    return torch.randn((vocab, d), generator=gen, device=gen.device,
+    return torch.randn((vocab, d), generator=cpu_generator(gen),
                        dtype=torch.float32) * 0.02

@@ -25,15 +25,14 @@ def init_mamba2(gen: torch.Generator, d_model: int, *, expand: int = 2,
     d_inner = expand * d_model
     n_heads = d_inner // head_dim
     conv_dim = d_inner + 2 * d_state
-    dev = gen.device
 
     def full(shape, value):
-        return torch.full(shape, value, dtype=torch.float32, device=dev)
+        return torch.full(shape, value, dtype=torch.float32)
     return {
         # order: [z (d_inner) | xBC (conv_dim) | dt (n_heads)]
         "in_proj": dense_init(gen, d_model, d_inner + conv_dim + n_heads),
         "conv_w": torch.randn((conv_kernel, conv_dim), generator=gen,
-                              device=dev, dtype=torch.float32)
+                              dtype=torch.float32)
         * (conv_kernel ** -0.5),
         "conv_b": full((conv_dim,), 0.0),
         "A_log": full((n_heads,), 0.0),          # A = -exp(A_log) = -1

@@ -19,7 +19,12 @@ the dispatch adds each kept token once into a zeroed slot and overflow
 rows add zeros, so any order of that scatter gives the same bits; the
 combine sums each token's k contributions in a fixed loop in ascending
 expert order, the order in which XLA's CPU scatter applies them (a CUDA
-``index_add_`` would add them in atomic, run-dependent order).
+``index_add_`` would add them in atomic, run-dependent order). In the
+backward, each token's gradient sums its k slots' gradients: the token
+gather is ``F.embedding`` over the (B * S, D) rows, whose backward sums
+repeats in a fixed order on both devices (``torch.gather``'s adds them
+atomically on CUDA, so that a top-8 step on the card did not repeat bit
+for bit).
 
 Expert stacks are cast to the activations' dtype at every call, as in
 the reference. In a decode step (s = 1) the capacity is k, so each
@@ -31,16 +36,17 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-from .common import act_fn, dense_init
+from .common import BATCH_AXES, MODEL_AXIS, act_fn, active_mesh, dense_init
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int):
-    """router (D, E); expert stacks wi, wg (E, D, F) and wo (E, F, D)."""
+    """router (D, E); expert stacks wi, wg (E, D, F) and wo (E, F, D), drawn
+    on the CPU generator ``gen``."""
     def stack(d_in, d_out):
         return torch.randn((n_experts, d_in, d_out), generator=gen,
-                           device=gen.device, dtype=torch.float32) \
-            * (1.0 / math.sqrt(d_in))
+                           dtype=torch.float32) * (1.0 / math.sqrt(d_in))
     return {"router": dense_init(gen, d_model, n_experts),
             "wi": stack(d_model, d_ff), "wg": stack(d_model, d_ff),
             "wo": stack(d_ff, d_model)}
@@ -92,40 +98,37 @@ def route(router, x, *, top_k: int, cap: int):
             "order": order, "idx": idx}
 
 
-def apply_moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
-              act: str = "silu"):
-    """x: (B, S, D) -> (B, S, D): route, dispatch, expert SwiGLU, combine.
-
-    The port has no device mesh, so this is always the reference's
-    unsharded path (``_moe_compute(..., constrain=True)`` with no active
-    mesh); its ``shard_map`` path, which slices the experts' F axis over
-    'model', waits for ``distributed/sharding.py``.
-    """
+def _dispatch(x, r, n_experts: int, cap: int):
+    """The (B, E, cap, D) slot buffer: each kept token copied into its
+    slot, overflow rows adding zeros into the last slot."""
     b, s, d = x.shape
-    e = params["router"].shape[-1]
-    cap = capacity(s, top_k, e, capacity_factor)
     dt = x.dtype
-    r = route(params["router"], x, top_k=top_k, cap=cap)
-    keep, dest, st = r["keep"], r["dest"], r["st"]
-    keep3 = keep[..., None]
+    rows = r["st"] + s * torch.arange(b, device=x.device)[:, None]
+    xg = F.embedding(rows, x.reshape(b * s, d))                     # (B,Tk,D)
+    buf = torch.zeros((b, n_experts * cap, d), dtype=dt, device=x.device)
+    buf.scatter_add_(1, r["dest"][..., None].expand(-1, -1, d),
+                     torch.where(r["keep"][..., None], xg,
+                                 torch.zeros((), dtype=dt, device=x.device)))
+    return buf.reshape(b, n_experts, cap, d)
 
-    xg = torch.gather(x, 1, st[..., None].expand(-1, -1, d))      # (B,Tk,D)
-    buf = torch.zeros((b, e * cap, d), dtype=dt, device=x.device)
-    buf.scatter_add_(1, dest[..., None].expand(-1, -1, d),
-                     torch.where(keep3, xg, torch.zeros((), dtype=dt,
-                                                        device=x.device)))
-    xe = buf.reshape(b, e, cap, d)
 
+def _experts_combine(wi, wg, wo, xe, r, *, top_k: int, act: str):
+    """Each expert's SwiGLU on its slots, then every token's k weighted
+    contributions summed in ascending expert order: (B, S, D). With F-slices
+    of the expert stacks, a partial sum over F."""
+    b, e, cap, d = xe.shape
+    s = r["idx"].shape[1]
+    dt = xe.dtype
     a = act_fn(act)
-    hi = torch.einsum("becd,edf->becf", xe, params["wi"].to(dt))
-    hg = torch.einsum("becd,edf->becf", xe, params["wg"].to(dt))
-    ye = torch.einsum("becf,efd->becd", a(hg) * hi, params["wo"].to(dt))
+    hi = torch.einsum("becd,edf->becf", xe, wi.to(dt))
+    hg = torch.einsum("becd,edf->becf", xe, wg.to(dt))
+    ye = torch.einsum("becf,efd->becd", a(hg) * hi, wo.to(dt))
 
     yflat = ye.reshape(b, e * cap, d)
-    contrib = torch.gather(yflat, 1, dest[..., None].expand(-1, -1, d)) \
+    contrib = torch.gather(yflat, 1, r["dest"][..., None].expand(-1, -1, d)) \
         * r["sw"][..., None].to(dt)
-    contrib = torch.where(keep3, contrib,
-                          torch.zeros((), dtype=dt, device=x.device))
+    contrib = torch.where(r["keep"][..., None], contrib,
+                          torch.zeros((), dtype=dt, device=xe.device))
     # back to (token, k) order, then each token's k contributions in
     # ascending expert order, summed left to right from zero
     unsorted = torch.empty_like(contrib)
@@ -134,7 +137,63 @@ def apply_moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
     per_token = torch.gather(
         unsorted.reshape(b, s, top_k, d), 2,
         by_expert[..., None].expand(-1, -1, -1, d))
-    out = torch.zeros((b, s, d), dtype=dt, device=x.device)
+    out = torch.zeros((b, s, d), dtype=dt, device=xe.device)
     for j in range(top_k):
         out = out + per_token[:, :, j]
+    return out
+
+
+def _slice_count(f_total: int, b: int) -> int:
+    """tp, the number of F slices: the active mesh's 'model' axis size when
+    it divides F and the data axes divide the batch (the reference's
+    ``use_shard_map`` test), else 1."""
+    mesh = active_mesh()
+    if mesh is None or MODEL_AXIS not in mesh.shape:
+        return 1
+    tp = mesh.shape[MODEL_AXIS]
+    dsize = math.prod(mesh.shape[a] for a in BATCH_AXES if a in mesh.shape)
+    if f_total % tp or b % dsize:
+        return 1
+    if mesh.device_mesh is not None:
+        raise NotImplementedError(
+            "MoE's F slices over a mesh of processes need an all-reduce "
+            "across ranks; the port runs them on a virtual mesh only")
+    return tp
+
+
+def apply_moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
+              act: str = "silu"):
+    """x: (B, S, D) -> (B, S, D): route, dispatch, expert SwiGLU, combine.
+
+    Under an active mesh with a 'model' axis of size tp that divides F,
+    and data axes that divide the batch, this is the one-device form of
+    the reference's ``shard_map`` path: the experts' F axis is cut into tp
+    slices, each slice's partial output is combined to (B, S, D) BEFORE
+    the slices are summed (the reference's combine-before-psum), and the
+    tp partials are summed in slice order, as ``FieldExchange`` sums dies.
+    Otherwise tp = 1: one slice, the whole F, which is the reference's
+    unsharded path. Routing and dispatch do not depend on F, so they are
+    computed once for all slices; the data axes need no split, because
+    dispatch is batch-local. A mesh whose ranks are processes would need
+    the partials all-reduced across them; that waits for a machine with
+    several cards.
+    """
+    b, s, d = x.shape
+    e = params["router"].shape[-1]
+    cap = capacity(s, top_k, e, capacity_factor)
+    f_total = params["wi"].shape[-1]
+    tp = _slice_count(f_total, b)
+
+    r = route(params["router"], x, top_k=top_k, cap=cap)
+    xe = _dispatch(x, r, e, cap)
+    ws = (params["wi"], params["wg"], params["wo"])
+    if tp > 1:
+        fs = f_total // tp
+        ws = (ws[0].split(fs, -1), ws[1].split(fs, -1), ws[2].split(fs, 1))
+    else:
+        ws = tuple((w,) for w in ws)
+    out = None
+    for wi, wg, wo in zip(*ws):
+        part = _experts_combine(wi, wg, wo, xe, r, top_k=top_k, act=act)
+        out = part if out is None else out + part
     return out

@@ -31,10 +31,9 @@ CHUNK = 32
 def init_rwkv_tmix(gen: torch.Generator, d_model: int, head_dim: int = 64,
                    lora_dim: int = 64):
     h = d_model // head_dim
-    dev = gen.device
 
     def full(shape, value):
-        return torch.full(shape, value, dtype=torch.float32, device=dev)
+        return torch.full(shape, value, dtype=torch.float32)
     return {
         "mu_r": full((d_model,), 0.5), "mu_k": full((d_model,), 0.5),
         "mu_v": full((d_model,), 0.5), "mu_w": full((d_model,), 0.5),
@@ -54,8 +53,8 @@ def init_rwkv_tmix(gen: torch.Generator, d_model: int, head_dim: int = 64,
 
 def init_rwkv_cmix(gen: torch.Generator, d_model: int, d_ff: int):
     return {
-        "mu_k": torch.full((d_model,), 0.5, device=gen.device),
-        "mu_r": torch.full((d_model,), 0.5, device=gen.device),
+        "mu_k": torch.full((d_model,), 0.5),
+        "mu_r": torch.full((d_model,), 0.5),
         "Wk": dense_init(gen, d_model, d_ff),
         "Wv": dense_init(gen, d_ff, d_model),
         "Wr": dense_init(gen, d_model, d_model),

@@ -11,26 +11,31 @@ from .common import embed_init
 from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, decode_rwkv_tmix,
                     init_rwkv_cmix, init_rwkv_tmix)
 from .transformer import (_apply_norm, _dtype, _embed, _init_norm,
-                          chunked_ce_loss, init_stacked, layers, remat)
+                          chunked_ce_loss, init_stacked, layers, place,
+                          remat)
 
 
 def _block_init(gen: torch.Generator, cfg: ModelConfig):
     return {"tmix": init_rwkv_tmix(gen, cfg.d_model, cfg.rwkv_head_dim),
             "cmix": init_rwkv_cmix(gen, cfg.d_model, cfg.d_ff),
-            "norm1": _init_norm(cfg, cfg.d_model, gen.device),
-            "norm2": _init_norm(cfg, cfg.d_model, gen.device)}
+            "norm1": _init_norm(cfg, cfg.d_model),
+            "norm2": _init_norm(cfg, cfg.d_model)}
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig):
-    """Random float32 parameters in the reference's tree: embed (V, D),
-    blocks (stacked tmix / cmix / norms), final_norm, head (D, V)."""
-    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                torch_device: str | torch.device):
+    """Random float32 parameters drawn from the CPU generator ``gen`` and
+    copied, part by part, to ``torch_device``, in the reference's tree:
+    embed (V, D), blocks (stacked tmix / cmix / norms), final_norm, head
+    (D, V)."""
+    dev = resolve_device(torch_device)
+    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model).to(dev),
               "blocks": init_stacked(lambda: _block_init(gen, cfg),
-                                     cfg.n_layers),
-              "final_norm": _init_norm(cfg, cfg.d_model, gen.device)}
-    params["head"] = torch.randn((cfg.d_model, cfg.vocab_size),
-                                 generator=gen, device=gen.device) \
-        / cfg.d_model ** 0.5
+                                     cfg.n_layers, dev),
+              "final_norm": place(_init_norm(cfg, cfg.d_model), dev)}
+    params["head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
+                                  generator=gen)
+                      / cfg.d_model ** 0.5).to(dev)
     return params
 
 

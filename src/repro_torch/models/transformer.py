@@ -61,11 +61,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 # Parameter init
 # --------------------------------------------------------------------------
 
-def _init_norm(cfg: ModelConfig, d: int, device):
-    w = torch.ones((d,), dtype=torch.float32, device=device)
+def _init_norm(cfg: ModelConfig, d: int):
+    w = torch.ones((d,), dtype=torch.float32)
     if cfg.norm == "layernorm":
-        return {"w": w, "b": torch.zeros((d,), dtype=torch.float32,
-                                         device=device)}
+        return {"w": w, "b": torch.zeros((d,), dtype=torch.float32)}
     return {"w": w}
 
 
@@ -79,7 +78,6 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
     """Attention weights, HEAD-MAJOR: wq (D, Hp, dh), wo (Hp, dh, D); the
     padded heads' wo rows are zero."""
     dh, h, hkv, d = cfg.head_dim, cfg.padded_heads, cfg.n_kv_heads, cfg.d_model
-    dev = gen.device
     p = {
         "wq": dense_init(gen, d, h * dh).reshape(d, h, dh),
         "wk": dense_init(gen, d, hkv * dh).reshape(d, hkv, dh),
@@ -90,12 +88,12 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig):
     if h > cfg.n_heads:
         p["wo"][cfg.n_heads:] = 0.0
     if cfg.qkv_bias:
-        p["bq"] = torch.zeros((h, dh), dtype=torch.float32, device=dev)
-        p["bk"] = torch.zeros((hkv, dh), dtype=torch.float32, device=dev)
-        p["bv"] = torch.zeros((hkv, dh), dtype=torch.float32, device=dev)
+        p["bq"] = torch.zeros((h, dh), dtype=torch.float32)
+        p["bk"] = torch.zeros((hkv, dh), dtype=torch.float32)
+        p["bv"] = torch.zeros((hkv, dh), dtype=torch.float32)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((dh,), dtype=torch.float32, device=dev)
-        p["k_norm"] = torch.ones((dh,), dtype=torch.float32, device=dev)
+        p["q_norm"] = torch.ones((dh,), dtype=torch.float32)
+        p["k_norm"] = torch.ones((dh,), dtype=torch.float32)
     return p
 
 
@@ -111,8 +109,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig):
     ffn = (init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts)
            if cfg.n_experts else init_mlp(gen, cfg))
     return {"attn": init_attn(gen, cfg), "ffn": ffn,
-            "norm1": _init_norm(cfg, cfg.d_model, gen.device),
-            "norm2": _init_norm(cfg, cfg.d_model, gen.device)}
+            "norm1": _init_norm(cfg, cfg.d_model),
+            "norm2": _init_norm(cfg, cfg.d_model)}
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -122,13 +120,18 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return cfg.vocab_size + (-cfg.vocab_size) % 256
 
 
-def init_stacked(make, n: int):
-    """``n`` layers of ``make()`` stacked into (n, ...) leaves, drawn in
-    layer order. Each layer is copied into the stack as it is drawn, so
-    memory peaks at the stack plus one layer (not twice the stack)."""
+def place(tree, dev: torch.device):
+    """``tree``'s leaves copied to ``dev``."""
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def init_stacked(make, n: int, dev: torch.device):
+    """``n`` layers of ``make()`` (drawn on the CPU) stacked into (n, ...)
+    leaves on ``dev``, drawn in layer order. Each layer is copied into the
+    stack as it is drawn, so the host holds one layer at a time."""
     layer = make()
     stack = tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
-                                           dtype=t.dtype, device=t.device),
+                                           dtype=t.dtype, device=dev),
                      layer)
     for i in range(n):
         if i:
@@ -159,24 +162,28 @@ def remat(fn, cfg: ModelConfig):
     return fn
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig):
-    """Random float32 parameters drawn from ``gen`` (on its device), in the
-    reference's tree: embed, blocks (stacked), final_norm, head."""
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                torch_device: str | torch.device):
+    """Random float32 parameters drawn from the CPU generator ``gen`` and
+    copied, part by part, to ``torch_device``, in the reference's tree:
+    embed, blocks (stacked), final_norm, head."""
     check_family(cfg)
+    dev = resolve_device(torch_device)
     params = {
-        "embed": embed_init(gen, padded_vocab(cfg), cfg.d_model),
-        "blocks": init_stacked(lambda: init_block(gen, cfg), cfg.n_layers),
-        "final_norm": _init_norm(cfg, cfg.d_model, gen.device),
+        "embed": embed_init(gen, padded_vocab(cfg), cfg.d_model).to(dev),
+        "blocks": init_stacked(lambda: init_block(gen, cfg), cfg.n_layers,
+                               dev),
+        "final_norm": place(_init_norm(cfg, cfg.d_model), dev),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, cfg.d_model, padded_vocab(cfg))
+        params["head"] = dense_init(gen, cfg.d_model,
+                                    padded_vocab(cfg)).to(dev)
     if cfg.family == "encoder":
         d = cfg.d_model
-        params["pos_conv"] = {
+        params["pos_conv"] = place({
             "w": torch.randn((POS_CONV_KERNEL, d // POS_CONV_GROUPS, d),
-                             generator=gen, device=gen.device,
-                             dtype=torch.float32) * 0.01,
-            "b": torch.zeros((d,), dtype=torch.float32, device=gen.device)}
+                             generator=gen, dtype=torch.float32) * 0.01,
+            "b": torch.zeros((d,), dtype=torch.float32)}, dev)
     return params
 
 

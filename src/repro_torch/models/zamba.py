@@ -19,7 +19,7 @@ from .mamba2 import apply_mamba2, decode_mamba2, init_mamba2
 from .transformer import (_apply_norm, _attn_out, _dtype, _embed,
                           _init_norm, _positions, _qkv, attn_block,
                           chunked_ce_loss, ffn_block, init_attn, init_mlp,
-                          init_stacked, layers, remat)
+                          init_stacked, layers, place, remat)
 
 
 def _mamba_block_init(gen: torch.Generator, cfg: ModelConfig):
@@ -27,25 +27,27 @@ def _mamba_block_init(gen: torch.Generator, cfg: ModelConfig):
                                  head_dim=cfg.ssm_head_dim,
                                  d_state=cfg.ssm_state,
                                  conv_kernel=cfg.conv_kernel),
-            "norm": _init_norm(cfg, cfg.d_model, gen.device)}
+            "norm": _init_norm(cfg, cfg.d_model)}
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig):
-    """Random float32 parameters in the reference's tree: embed (V, D),
-    blocks (stacked Mamba blocks), shared (one attention + MLP block),
-    final_norm, head (D, V)."""
-    dev = gen.device
-    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model)}
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                torch_device: str | torch.device):
+    """Random float32 parameters drawn from the CPU generator ``gen`` and
+    copied, part by part, to ``torch_device``, in the reference's tree:
+    embed (V, D), blocks (stacked Mamba blocks), shared (one attention +
+    MLP block), final_norm, head (D, V)."""
+    dev = resolve_device(torch_device)
+    params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model).to(dev)}
     params["blocks"] = init_stacked(lambda: _mamba_block_init(gen, cfg),
-                                    cfg.n_layers)
-    params["shared"] = {"attn": init_attn(gen, cfg),
-                        "mlp": init_mlp(gen, cfg),
-                        "norm1": _init_norm(cfg, cfg.d_model, dev),
-                        "norm2": _init_norm(cfg, cfg.d_model, dev)}
-    params["final_norm"] = _init_norm(cfg, cfg.d_model, dev)
-    params["head"] = torch.randn((cfg.d_model, cfg.vocab_size),
-                                 generator=gen, device=dev) \
-        / cfg.d_model ** 0.5
+                                    cfg.n_layers, dev)
+    params["shared"] = place({"attn": init_attn(gen, cfg),
+                              "mlp": init_mlp(gen, cfg),
+                              "norm1": _init_norm(cfg, cfg.d_model),
+                              "norm2": _init_norm(cfg, cfg.d_model)}, dev)
+    params["final_norm"] = place(_init_norm(cfg, cfg.d_model), dev)
+    params["head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
+                                  generator=gen)
+                      / cfg.d_model ** 0.5).to(dev)
     return params
 
 

@@ -2,18 +2,20 @@
 reference's ``models.zoo``).
 
     model = build(get_config("qwen3-0.6b"))
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
     loss = model.loss(params, {"tokens": tokens, "labels": labels})
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=96)
     logits, cache = model.decode_step(params, cache, next_tokens)
 
-Every family of the reference's registry but ``ising`` builds. As in the
-reference, ``prefill`` is None for the encoder and the recurrent families
-(hybrid, rwkv), and ``init_cache`` / ``decode_step`` are None for the
-encoder. ``loss`` takes the reference's batches: tokens and labels (-1 =
-masked); the encoder's ``embeds`` in place of tokens; the vlm's
-``vision_embeds`` over the first positions, whose labels the caller sets
-to -1. ``input_specs`` / ``cache_specs`` (the dry-run's shape stand-ins)
+``init`` draws on a CPU generator (it refuses any other) and copies the
+weights to the device it is given, so one seed gives the same weights on
+every device. Every family of the reference's registry but ``ising``
+builds. As in the reference, ``prefill`` is None for the encoder and the
+recurrent families (hybrid, rwkv), and ``init_cache`` / ``decode_step``
+are None for the encoder. ``loss`` takes the reference's batches: tokens
+and labels (-1 = masked); the encoder's ``embeds`` in place of tokens;
+the vlm's ``vision_embeds`` over the first positions, whose labels the
+caller sets to -1. ``input_specs`` / ``cache_specs`` (the dry-run's shape stand-ins)
 wait for the dry-run's slice.
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ from . import rwkv_model, transformer, zamba
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable[..., Any]                       # (generator) -> params
+    init: Callable[..., Any]                       # (generator, torch_device) -> params
     loss: Callable[..., Any]                       # (params, batch) -> scalar
     forward: Callable[..., Any]                    # (params, batch) -> hiddens
     prefill: Optional[Callable[..., Any]] = None   # (params, batch, max_len) -> (logits, cache)
@@ -52,7 +54,8 @@ def build(cfg: ModelConfig) -> Model:
             return transformer.init_cache(cfg, b, s,
                                           torch_device=torch_device)
         return Model(
-            cfg=cfg, init=lambda gen: transformer.init_params(gen, cfg),
+            cfg=cfg, init=lambda gen, torch_device:
+            transformer.init_params(gen, cfg, torch_device),
             loss=lambda p, b: transformer.lm_loss(p, cfg, b), forward=fwd,
             prefill=pre if cfg.family != "encoder" else None,
             init_cache=cache if cfg.has_decode else None,
@@ -62,7 +65,8 @@ def build(cfg: ModelConfig) -> Model:
     if recurrent is None:
         raise ValueError(f"no model family {cfg.family!r}")
     return Model(
-        cfg=cfg, init=lambda gen: recurrent.init_params(gen, cfg),
+        cfg=cfg, init=lambda gen, torch_device: recurrent.init_params(
+            gen, cfg, torch_device),
         loss=lambda p, b: recurrent.lm_loss(p, cfg, b),
         forward=lambda p, b: recurrent.forward(p, cfg, b["tokens"]),
         init_cache=lambda b, s, torch_device="cuda": recurrent.init_cache(

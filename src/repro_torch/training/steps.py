@@ -14,6 +14,7 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig
+from ..device import resolve_device
 from ..models import build
 from ..optim import (AdamWConfig, adamw, apply_updates, clip_by_global_norm,
                      init_opt_state, linear_warmup_cosine)
@@ -27,14 +28,14 @@ class TrainState:
     step: torch.Tensor     # 0-d int32
 
 
-def init_train_state(cfg: ModelConfig, generator: torch.Generator
-                     ) -> TrainState:
-    """Parameters drawn from ``generator`` (on its device), zero moments,
-    step 0."""
-    params = build(cfg).init(generator)
+def init_train_state(cfg: ModelConfig, generator: torch.Generator,
+                     torch_device: str | torch.device) -> TrainState:
+    """Parameters drawn from the CPU ``generator`` and placed on
+    ``torch_device``, zero moments, step 0."""
+    params = build(cfg).init(generator, torch_device)
     return TrainState(params=params, opt=init_opt_state(params),
                       step=torch.zeros((), dtype=torch.int32,
-                                       device=generator.device))
+                                       device=resolve_device(torch_device)))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,

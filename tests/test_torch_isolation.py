@@ -35,7 +35,10 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.models.zamba, repro_torch.models.rwkv6, "
             "repro_torch.models.rwkv_model, repro_torch.optim, "
             "repro_torch.training, repro_torch.checkpoint, "
-            "repro_torch.launch.train, repro_torch.pytree; "
+            "repro_torch.launch.train, repro_torch.pytree, "
+            "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+            "repro_torch.roofline, repro_torch.roofline.analysis, "
+            "repro_torch.roofline.op_cost; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -76,6 +79,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from repro_torch.distributed import fabric_mesh
     from repro_torch.launch import serve_lm
     from repro_torch.launch.train import train
+    from repro_torch.launch.mesh import make_host_mesh, virtual_mesh
+    from repro_torch.distributed import remesh
     _no_cuda(monkeypatch)
     suite = ProblemSuite.random(n=8, density=0.5, num_problems=1, seed=0)
     J = suite[0].J_levels
@@ -127,7 +132,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: serve_lm.serve("olmoe-1b-7b", 1, 4, 2),
                  lambda: serve_lm.serve("zamba2-7b", 1, 4, 2),
                  lambda: serve_lm.serve("hubert-xlarge", 1, 4, 2),
-                 lambda: train("qwen3-0.6b", 1, 2, 8, str(tmp_path))):
+                 lambda: train("qwen3-0.6b", 1, 2, 8, str(tmp_path)),
+                 lambda: make_host_mesh(),
+                 lambda: virtual_mesh((1, 2), ("data", "model")),
+                 lambda: remesh([0, 1], 2)):
         with pytest.raises(RuntimeError, match="torch_device='cpu'"):
             call()
     # asked for by name, the CPU works

@@ -43,6 +43,7 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.data import DataState, SyntheticLM, make_batch_iterator
 from repro_torch.launch import serve_lm
 from repro_torch.models import attention, build, common, transformer
+from repro_torch.pytree import leaves
 
 RTOL, ATOL = 1e-4, 1e-5
 DENSE = ["qwen3-0.6b", "qwen2-7b", "qwen2-1.5b", "chatglm3-6b"]
@@ -259,7 +260,7 @@ def test_dense_model_matches_reference(arch):
         assert np.all(arrays["blocks"]["attn"]["wo"][:, 3:] == 0)
     # the parameter tree and shapes: the port's own init equals the
     # reference's
-    own = model.init(torch.Generator().manual_seed(0))
+    own = model.init(torch.Generator().manual_seed(0), "cpu")
     assert jax.tree.map(np.shape, arrays) == \
         jax.tree.map(lambda t: tuple(t.shape), own)
     B, S, gen, smax = 2, 20, 8, 32
@@ -299,7 +300,7 @@ def test_decode_parity(arch):
     a capacity factor of 8 removes them."""
     cfg = dataclasses.replace(_cfg(arch), capacity_factor=8.0)
     model = build(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
     B, S = 2, 20
     toks = torch.as_tensor(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (B, S)))
@@ -321,7 +322,7 @@ def test_decode_parity(arch):
 def test_prefill_matches_decode_warmup():
     cfg = configs.get_config("qwen3-0.6b").reduced()
     model = build(cfg)
-    params = model.init(torch.Generator().manual_seed(3))
+    params = model.init(torch.Generator().manual_seed(3), "cpu")
     B, S = 2, 12
     toks = torch.as_tensor(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (B, S)))
@@ -461,7 +462,7 @@ def _greedy_against_reference(model, params, r_decode, r_params, logits,
 def test_family_model_matches_reference(arch, S):
     """The reference runs jitted, as its ``serve_lm`` runs it."""
     cfg, r_model, r_params, model, params, arrays = _models(arch)
-    own = model.init(torch.Generator().manual_seed(0))
+    own = model.init(torch.Generator().manual_seed(0), "cpu")
     assert jax.tree.map(np.shape, arrays) == \
         jax.tree.map(lambda t: tuple(t.shape), own)
     B, gen, smax = 2, 8, 32
@@ -524,7 +525,7 @@ def test_vlm_prefix_splice():
 def test_encoder_is_bidirectional():
     cfg = _cfg("hubert-xlarge")
     model = build(cfg)
-    params = model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
     batch = _torch_batch(_prompt_batch(cfg, 2, 64))
     with torch.no_grad():
         h1 = model.forward(params, batch)
@@ -550,6 +551,51 @@ def test_encoder_pos_conv_matches_reference(s):
         dimension_numbers=("NWC", "WIO", "NWC"), feature_group_count=16)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+
+
+# -- seeded weights: drawn on the CPU, copied to the device ------------------
+
+class _NotOnTheCpu:
+    """A generator-like object on another device (this container's torch
+    cannot make a CUDA generator)."""
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("arch", DENSE[:1] + FAMILIES)
+def test_init_takes_a_cpu_generator_and_a_device(arch):
+    from repro_torch.training import init_train_state
+    cfg = configs.get_config(arch).reduced()
+    model = build(cfg)
+    a = model.init(torch.Generator().manual_seed(0), "cpu")
+    b = model.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert all(torch.equal(x, y) and x.device.type == "cpu"
+               for x, y in zip(leaves(a), leaves(b)))
+    with pytest.raises(ValueError, match="CPU torch.Generator"):
+        model.init(_NotOnTheCpu(), "cpu")
+    with pytest.raises(ValueError, match="CPU torch.Generator"):
+        init_train_state(cfg, _NotOnTheCpu(), "cpu")
+    with pytest.raises(TypeError):
+        model.init(torch.Generator().manual_seed(0))   # no device given
+
+
+def test_entry_points_make_their_generator_on_the_cpu(monkeypatch,
+                                                      tmp_path):
+    """``serve`` and ``train`` draw from ``torch.Generator()``, never from a
+    generator on their ``torch_device`` (whose stream depends on the
+    device): the generator they make names no device."""
+    from repro_torch.launch.train import train
+    made = []
+
+    class Spy(torch.Generator):
+        def __init__(self, *args, **kw):
+            made.append((args, kw))
+            super().__init__(*args, **kw)
+    monkeypatch.setattr(torch, "Generator", Spy)
+    serve_lm.serve("olmoe-1b-7b", batch=1, prompt_len=4, gen=2,
+                   torch_device="cpu")
+    train("qwen3-0.6b", steps=1, batch=2, seq=8, ckpt_dir=str(tmp_path),
+          torch_device="cpu")
+    assert made == [((), {}), ((), {})]
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "olmoe-1b-7b",

@@ -1,0 +1,186 @@
+"""The port's roofline counter (``roofline.op_cost``, ``roofline.analysis``)
+against the JAX package's (``roofline.hlo_cost``, ``roofline.analysis``).
+
+Exactness, fixed before the port was written:
+  * bitwise: ``count_params`` / ``active_params`` / ``model_flops`` (shape
+    arithmetic summed in the reference's leaf order), and
+    ``roofline_report``'s arithmetic on the same counts and hardware;
+  * the reference's 1%: the FLOPs of a 10-trip loop (the port counts
+    products only, the reference also 1 an element of ``tanh``);
+  * exact: collective operand bytes in a fake world.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.configs.base import SHAPES as R_SHAPES
+from repro.models import build as r_build
+from repro.roofline import analysis as r_analysis
+from repro.roofline import hlo_cost as r_hlo_cost
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES
+from repro_torch.models import build
+from repro_torch.roofline import (HW, Cost, active_params, analyze,
+                                  collective_bytes, count_params,
+                                  model_flops, roofline_report)
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = sorted(a for a, c in r_configs.REGISTRY.items()
+               if c.family != "ising")
+
+
+def _reduced(arch):
+    cfg = configs.get_config(arch)
+    return cfg.reduced(n_layers=5) if cfg.family == "hybrid" else \
+        cfg.reduced()
+
+
+def _r_cfg(cfg):
+    return dataclasses.replace(r_configs.get_config(cfg.name),
+                               **dataclasses.asdict(cfg))
+
+
+def test_model_flops_moe_active_only():
+    cfg, r_cfg = (configs.get_config("olmoe-1b-7b"),
+                  r_configs.get_config("olmoe-1b-7b"))
+    shape = (16, 64, 2048, 1024)
+    n_act = active_params(cfg, {"blocks": {"ffn": {
+        "wi": torch.empty(shape, device="meta")}}})
+    r_act = r_analysis.active_params(r_cfg, {"blocks": {"ffn": {
+        "wi": jax.ShapeDtypeStruct(shape, jnp.float32)}}})
+    assert n_act == r_act
+    assert np.isclose(n_act, 16 * 64 * 2048 * 1024 * (8 / 64))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_counts_and_model_flops_equal_reference(arch):
+    """The port's own init of each reduced config against the reference's
+    ``eval_shape`` of its init, for every shape kind."""
+    cfg = _reduced(arch)
+    r_cfg = _r_cfg(cfg)
+    params = build(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    r_params = jax.eval_shape(r_build(r_cfg).init, jax.random.PRNGKey(0))
+    assert count_params(params) == r_analysis.count_params(r_params)
+    assert active_params(cfg, params) == r_analysis.active_params(
+        r_cfg, r_params)
+    for name in SHAPES:
+        assert model_flops(cfg, SHAPES[name], params) == \
+            r_analysis.model_flops(r_cfg, R_SHAPES[name], r_params), name
+
+
+def test_loop_flops_scale_with_trips():
+    """``test_hlo_cost_scales_while_loops``: a 10-trip loop of tanh(c @ w)
+    counts every trip (the reference's scan, a Python loop here)."""
+    def f_loop(x, w):
+        c = x
+        for _ in range(10):
+            c = torch.tanh(c @ w)
+        return c
+
+    x, w = torch.randn(128, 128), torch.randn(128, 128)
+    cost = analyze(f_loop, x, w)
+    expect = 10 * (2 * 128 ** 3 + 128 * 128)
+    assert abs(cost.flops - expect) / expect < 0.01
+    # operands and results of the 20 executed ops, 64 KiB each
+    assert cost.bytes == 10 * (3 + 2) * 128 * 128 * 4
+    assert collective_bytes(cost) == {k: 0 for k in cost.collectives}
+
+
+def test_views_move_no_bytes():
+    x = torch.randn(64, 32)
+    assert analyze(lambda: x.t()[:10].unsqueeze(0)).bytes == 0
+    assert analyze(lambda: x + 1).bytes == 2 * 64 * 32 * 4
+    # a reshape that must copy is a copy
+    assert analyze(lambda: x.t().reshape(-1)).bytes == 2 * 64 * 32 * 4
+
+
+def test_collective_bytes_in_a_fake_world():
+    """``test_collective_regex``: an all-reduce of f32[128, 256] and an
+    all-gather of bf16[64] over a fake world of 4."""
+    code = textwrap.dedent("""
+        import json
+        import torch
+        import torch.distributed as dist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.roofline import analyze, collective_bytes
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=4)
+        x = torch.randn(128, 256)
+        y = torch.randn(64, dtype=torch.bfloat16)
+        out = torch.empty(256, dtype=torch.bfloat16)
+        parts = [torch.empty(64, dtype=torch.bfloat16) for _ in range(4)]
+
+        def step():
+            dist.all_reduce(x)
+            dist.all_gather_into_tensor(out, y)
+
+        one = collective_bytes(analyze(step))
+        listed = collective_bytes(analyze(lambda: dist.all_gather(parts, y)))
+        print(json.dumps({"one": one, "listed": listed}))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c", code],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["one"] == {"all-reduce": 128 * 256 * 4, "all-gather": 64 * 2,
+                          "reduce-scatter": 0, "all-to-all": 0,
+                          "collective-permute": 0}
+    assert got["listed"]["all-gather"] == 64 * 2
+    # the reference's parser counts the same payloads from its HLO
+    ref = r_analysis.collective_bytes_from_hlo(
+        "  %ar = f32[128,256]{1,0} all-reduce(%x), replica_groups={}\n"
+        "  %ag-start = bf16[64]{0} all-gather-start(%y), dimensions={0}\n")
+    assert ref["all-reduce"] == got["one"]["all-reduce"]
+    assert ref["all-gather"] == got["one"]["all-gather"]
+
+
+@pytest.mark.parametrize("chips,mft", [(None, None), (1, 3.1e15),
+                                       (4, 7.0e16)])
+@pytest.mark.parametrize("flops,nbytes,coll", [
+    (2.5e14, 1.2e11, {"all-reduce": 3e9, "all-gather": 1e8}),
+    (1.0e12, 9.9e12, {}),
+    (0.0, 0.0, {"reduce-scatter": 5e10, "all-to-all": 1.5e9}),
+])
+def test_roofline_report_equals_reference_arithmetic(flops, nbytes, coll,
+                                                     chips, mft,
+                                                     monkeypatch):
+    hw = HW()
+    cost = Cost(flops=flops, bytes=nbytes)
+    cost.collectives.update(coll)
+    r_cost = r_hlo_cost.Cost(flops, nbytes)
+    r_cost.collectives.update(coll)
+    monkeypatch.setattr(r_hlo_cost, "analyze", lambda text: r_cost)
+    monkeypatch.setattr(r_analysis, "_cost", lambda compiled: {})
+
+    class _Compiled:
+        def as_text(self):
+            return ""
+    r_hw = r_analysis.HW(peak_flops=hw.peak_flops, hbm_bw=hw.hbm_bw,
+                         ici_bw=hw.ici_bw, hbm_bytes=hw.hbm_bytes)
+    ref = r_analysis.roofline_report(_Compiled(), r_hw, chips=chips,
+                                     model_flops_total=mft)
+    got = roofline_report(cost, hw, chips=chips, model_flops_total=mft)
+    assert set(ref) - set(got) == {"xla_flops_unscaled",
+                                   "xla_bytes_unscaled"}
+    assert set(got) <= set(ref)
+    for k in got:
+        assert got[k] == ref[k], k
+
+
+def test_hw_is_the_h100():
+    hw = HW()
+    assert (hw.peak_flops, hw.hbm_bw, hw.ici_bw, hw.hbm_bytes) == \
+        (989e12, 3.35e12, 450e9, 80 * 2**30)

@@ -425,6 +425,31 @@ def test_family_loss_and_grads_match_reference(arch):
     _close_grads(got, want)
 
 
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_moe_f_slices_loss_and_grads_match_reference(tp):
+    """MoE's F slices with their backward: the port's loss and gradients
+    under a virtual (1, tp) mesh against ``jax.grad`` of the reference's
+    ``shard_map`` path under its one-device host mesh."""
+    from repro.launch import mesh as r_mesh
+    from repro_torch.launch.mesh import activate_mesh, virtual_mesh
+    cfg, r_model, r_params, model, params = _family("olmoe-1b-7b")
+    assert cfg.d_ff % tp == 0
+    batch = _smoke_batch(cfg)
+    tp_params = tree_map(lambda t: t.requires_grad_(), params)
+    with activate_mesh(virtual_mesh((1, tp), ("data", "model"), "cpu")):
+        loss = model.loss(tp_params, {k: _t(v) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves(tp_params),
+                                    materialize_grads=True)
+    with r_mesh.activate_mesh(r_mesh.make_host_mesh()):
+        r_loss, r_grads = jax.jit(jax.value_and_grad(r_model.loss))(
+            r_params, jax.tree.map(jnp.asarray, batch))
+    np.testing.assert_allclose(float(loss.detach()), float(r_loss),
+                               rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    _close_grads({k: g.numpy() for (k, _), g in
+                  zip(flatten_with_paths(tp_params), grads)},
+                 _ref_paths(r_grads))
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_and_unbind_leave_the_forward_bitwise(arch):
     """The serving forward (no grad), the training forward (grad on, each
@@ -432,7 +457,7 @@ def test_remat_and_unbind_leave_the_forward_bitwise(arch):
     the same bits; so do the gradients with and without remat."""
     cfg = _reduced(arch)
     assert cfg.remat
-    params = build(cfg).init(torch.Generator().manual_seed(1))
+    params = build(cfg).init(torch.Generator().manual_seed(1), "cpu")
     batch = {k: _t(v) for k, v in _smoke_batch(cfg, s=24, seed=1).items()}
     with torch.no_grad():
         served = build(cfg).forward(params, batch)
@@ -535,7 +560,7 @@ def test_train_step_is_functional():
     """The step returns new tensors and leaves the state it was given as it
     was: a retry with that state replays the same step."""
     cfg = _reduced("qwen3-0.6b")
-    state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
     before = [t.clone() for t in leaves(state)]
     step = make_train_step(cfg, AdamWConfig(lr=1e-3), warmup_steps=5)
     tokens, labels = SyntheticLM(cfg.vocab_size, 32, 2).batch_at(0)
@@ -571,7 +596,7 @@ def test_checkpoints_cross_between_the_packages(tmp_path):
     meta = {"data_step": 7, "arch": cfg.name}
     # the reference saves, the port restores
     RCheckpointer(str(tmp_path / "ref")).save(7, r_state, meta)
-    template = init_train_state(cfg, torch.Generator().manual_seed(9))
+    template = init_train_state(cfg, torch.Generator().manual_seed(9), "cpu")
     ck = Checkpointer(str(tmp_path / "ref"))
     assert ck.latest_step() == 7
     restored, got_meta = ck.restore(template)
