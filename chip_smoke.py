@@ -167,6 +167,20 @@ exits nonzero:
                 olmoe-1b-7b, top_k = 8): two steps from one state and the
                 gradient repeated on the card, bitwise or not, beside the
                 same check with the token gather as torch.gather.
+ 19. dryrun   — the multi-pod dry-run (launch.dryrun) on the card's
+                torch: in a child Python, rank 0 of a fake world of 256
+                ranks with torch_device="cuda" traces qwen2-7b x decode_32k,
+                olmoe-1b-7b x train_4k and ising-chip64 on the (16, 16)
+                production mesh (per-rank GiB, its three terms, trace
+                seconds; a cell that fails fails the phase); then, with no
+                process group, qwen3-0.6b at full width with train's batch
+                (8 x 512) traced on make_host_mesh("cuda") against the real
+                step from train's state: counted FLOPs and bytes equal
+                op_cost.analyze of the real step exactly, the argument
+                bytes equal the state's and batch's bytes (printed beside
+                the allocation a copy of them takes), the temp estimate
+                printed beside the real step's peak allocation; the
+                phase's wall.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -2795,6 +2809,11 @@ RESTART = dict(batch=4, seq=64, ckpt_every=10)
 TRAIN_FULL = dict(steps=20, batch=8, seq=512)
 #: qwen3-0.6b's parameter count (checked against the trained state)
 TRAIN_FULL_PARAMS = 751_894_528
+#: the dry-run's cells on the card's torch: (arch, shape), then an Ising key
+DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("olmoe-1b-7b", "train_4k"))
+DRYRUN_ISING = "chip64"
+#: the full-width step phase train measured, for phase dryrun's count
+REAL_STEP = {}
 
 
 def train_batch(cfg, B, S, dev, seed=0):
@@ -3161,6 +3180,7 @@ def phase_train():
         emit({"phase": "train", "profile": {
             "arch": LM_ARCH, **TRAIN_FULL, **prof}})
         cost = analyze(step_fn, saved, batch)
+        REAL_STEP.update(real_step(step_fn, saved, batch, cost))
         train_shape = ShapeConfig("train_8x512", TRAIN_FULL["seq"],
                                   TRAIN_FULL["batch"], "train")
         useful = model_flops(full, train_shape, saved.params)
@@ -3248,9 +3268,153 @@ def phase_train():
           f"{LM_ARCH}: model_flops above the counted FLOPs")
 
 
+def real_step(step_fn, state, batch, cost) -> dict:
+    """What phase dryrun holds its trace against: the real step's
+    ``op_cost`` count, its arguments' bytes, the allocation a copy of
+    them takes, and the step's peak allocation above its arguments."""
+    import torch
+    from repro_torch.pytree import leaves, tree_map
+    free_cuda()
+    before = torch.cuda.memory_allocated()
+    copy = tree_map(torch.clone, (state, batch))
+    grown = torch.cuda.memory_allocated() - before
+    del copy
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    free_cuda()
+    return {"cost": cost, "allocated_growth": grown, "step_peak": peak,
+            "argument_bytes": sum(t.numel() * t.element_size()
+                                  for t in leaves((state, batch)))}
+
+
+def dryrun_world_cells() -> list:
+    """``run_cell`` / ``run_ising_cell`` as rank 0 of a fake world of 256
+    ranks on the card, in a child Python (one process holds one world):
+    one record a cell."""
+    code = "\n".join([
+        "import json, logging, sys",
+        f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})",
+        "from repro_torch.launch import dryrun",
+        "dryrun.init_fake_world(256)",
+        "logging.getLogger('torch.distributed.tensor').setLevel(40)",
+        "logging.getLogger('torch._logging').setLevel(40)",
+        "import traceback",
+        "failed = 0",
+        f"for arch, shape in {DRYRUN_CELLS + (('ising', DRYRUN_ISING),)!r}:",
+        "    try:",
+        "        rec = (dryrun.run_ising_cell(shape, False, save=False,"
+        " torch_device='cuda') if arch == 'ising' else dryrun.run_cell("
+        "arch, shape, False, save=False, torch_device='cuda'))",
+        "    except Exception as e:",
+        "        traceback.print_exc()",
+        "        failed, rec = 1, {'arch': arch, 'shape': shape,"
+        " 'error': repr(e)[:500]}",
+        "    print(json.dumps(rec), flush=True)",
+        "sys.exit(failed)"])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    print(out.stderr[-6000:], file=sys.stderr, flush=True)
+    records = [json.loads(line) for line in out.stdout.splitlines()
+               if line.startswith("{")]
+    for rec in records:
+        if "error" in rec:
+            emit({"phase": "dryrun", "cell_failed": rec})
+    check(out.returncode == 0, f"the dry-run's world exited "
+          f"{out.returncode}")
+    return records
+
+
+def phase_dryrun():
+    """The multi-pod dry-run on the card's torch (no kernel: the
+    reference's dry-run lowers plain JAX). (1) Three cells traced in a
+    fake world of 256 ranks on the card's device type. (2) qwen3-0.6b at
+    full width with phase train's batch traced on the card's (1, 1) host
+    mesh against the real step: FLOPs, bytes and argument bytes
+    exactly."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.roofline import analyze
+    from repro_torch.training import init_train_state, make_train_step
+
+    t0 = time.perf_counter()
+    records = dryrun_world_cells()
+    world_s = time.perf_counter() - t0
+    for rec in records:
+        rep, mem = rec["roofline"], rec["memory"]
+        emit({"phase": "dryrun", "cell": {
+            "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "kind": rec["kind"], "trace_s": rec["trace_s"],
+            "argument_gib": mem["argument_size_in_bytes"] / 2**30,
+            "temp_gib": mem["temp_size_in_bytes"] / 2**30,
+            "t_compute_s": rep["t_compute_s"],
+            "t_memory_s": rep["t_memory_s"],
+            "t_collective_s": rep["t_collective_s"],
+            "dominant": rep["dominant"],
+            "collective_breakdown": rep["collective_breakdown"],
+            "roofline_fraction": rep["roofline_fraction"],
+            "model_flops": rec["model_flops"]}})
+        check(rep["hlo_flops_per_device"] > 0,
+              f"dry-run {rec['arch']} x {rec['shape']}: no FLOPs counted")
+    check(len(records) == len(DRYRUN_CELLS) + 1,
+          f"the dry-run's world gave {len(records)} records")
+
+    full = family_cfg(LM_ARCH, full=True)
+    shape = ShapeConfig("train_8x512", TRAIN_FULL["seq"],
+                        TRAIN_FULL["batch"], "train")
+    real = dict(REAL_STEP)
+    if not real:                     # phase train did not run: draw its state
+        state = init_train_state(full, torch.Generator().manual_seed(0),
+                                 "cuda")
+        tokens, labels = SyntheticLM(full.vocab_size, TRAIN_FULL["seq"],
+                                     TRAIN_FULL["batch"]).batch_at(0)
+        batch = {"tokens": torch.as_tensor(tokens, device="cuda"),
+                 "labels": torch.as_tensor(labels, device="cuda")}
+        step_fn = make_train_step(full, AdamWConfig(lr=1e-3), 10_000, 5)
+        real = real_step(step_fn, state, batch,
+                         analyze(step_fn, state, batch))
+        del state, batch
+        free_cuda()
+    traced, _, trace_s = dryrun._lower(full, shape, make_host_mesh("cuda"))
+    row = {"arch": LM_ARCH, "batch": [TRAIN_FULL["batch"], TRAIN_FULL["seq"]],
+           "trace_s": trace_s,
+           "flops_traced": traced.cost.flops,
+           "flops_real": real["cost"].flops,
+           "bytes_traced": traced.cost.bytes,
+           "bytes_real": real["cost"].bytes,
+           "argument_bytes_traced": traced.argument_bytes,
+           "argument_bytes_real": real["argument_bytes"],
+           "allocated_growth_of_a_copy": real["allocated_growth"],
+           "temp_bytes_traced": traced.cost.peak_bytes,
+           "temp_bytes_real_op_cost": real["cost"].peak_bytes,
+           "step_peak_allocated_above_args": real["step_peak"],
+           "temp_over_peak_allocated": traced.cost.peak_bytes
+           / real["step_peak"]}
+    wall = time.perf_counter() - t0
+    emit({"phase": "dryrun", "count_vs_card": row})
+    emit({"phase": "dryrun", "wall_s": wall, "world_s": world_s})
+    check(row["flops_traced"] == row["flops_real"] > 0,
+          f"dry-run FLOPs {row['flops_traced']} != the real step's "
+          f"{row['flops_real']}")
+    check(row["bytes_traced"] == row["bytes_real"] > 0,
+          f"dry-run bytes {row['bytes_traced']} != the real step's "
+          f"{row['bytes_real']}")
+    check(row["argument_bytes_traced"] == row["argument_bytes_real"],
+          f"dry-run argument bytes {row['argument_bytes_traced']} != "
+          f"{row['argument_bytes_real']}")
+
+
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
           "gset", "sb_timing", "search", "zoo", "physics", "serve",
-          "fabric", "lm", "lm_families", "mesh", "train")
+          "fabric", "lm", "lm_families", "mesh", "train", "dryrun")
 
 
 def main(argv=None) -> int:
@@ -3299,6 +3463,7 @@ def main(argv=None) -> int:
             "lm_families": phase_lm_families,
             "mesh": phase_mesh,
             "train": phase_train,
+            "dryrun": phase_dryrun,
         }
         out = {name: run[name]() for name in PHASES if name in phases}
     emit({"phase": "end", "total_s": time.perf_counter() - START})

@@ -92,10 +92,20 @@ def virtual_mesh(shape, axes, torch_device: str | torch.device = "cuda"
 
 @contextlib.contextmanager
 def activate_mesh(mesh: Mesh):
-    """Within the block, ``mesh`` is the ambient mesh."""
+    """Within the block, ``mesh`` is the ambient mesh. On a mesh of
+    processes the block also runs under DTensor's
+    ``implicit_replication``: a plain tensor every rank makes alike (a
+    model's mask, a schedule table) counts as replicated where it meets a
+    DTensor."""
     token = ACTIVE_MESH.set(mesh)
     try:
-        yield mesh
+        if mesh.device_mesh is None:
+            yield mesh
+        else:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            with implicit_replication():
+                yield mesh
     finally:
         ACTIVE_MESH.reset(token)
 

@@ -1,3 +1,3 @@
-from .zoo import Model, build
+from .zoo import Model, build, cache_specs, input_specs
 
-__all__ = ["Model", "build"]
+__all__ = ["Model", "build", "cache_specs", "input_specs"]

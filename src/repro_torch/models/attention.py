@@ -16,6 +16,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import spec
+from .common import (from_local, local_shard, logical, process_mesh, psum,
+                     shard_index)
+
 NEG_INF = -1e30
 
 
@@ -38,8 +42,33 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
 
     q chunk i attends to kv chunks [0, n_need) only when causal; fully
     masked entries inside those chunks are computed and masked, as in the
-    reference.
+    reference. On a mesh of processes each rank attends on its own shard
+    (``_attention_over_ranks``).
     """
+    mesh = process_mesh()
+    if mesh is not None:
+        return _attention_over_ranks(q, k, v, mesh, causal=causal,
+                                     q_chunk=q_chunk, k_chunk=k_chunk,
+                                     scale=scale)
+    return _flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
+                            k_chunk=k_chunk, scale=scale)
+
+
+def _attention_over_ranks(q, k, v, mesh, **kw):
+    """Attention is independent per sequence and per head, so on a mesh
+    of processes each rank runs ``_flash_attention`` on its shard of both,
+    the layout of the reference's constraints on q, k and v (batch over
+    the data axes, heads over 'model'); no rank reads another's."""
+    h = q.shape[2]
+    s = logical("batch", None, "model", None)
+    o = _flash_attention(local_shard(q, mesh, s),
+                         local_shard(_expand_kv(k, h), mesh, s),
+                         local_shard(_expand_kv(v, h), mesh, s), **kw)
+    return from_local(o, mesh, s, q.shape)
+
+
+def _flash_attention(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int,
+                     scale: float | None):
     b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     out_dtype = q.dtype
@@ -98,6 +127,32 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
     return out.to(out_dtype)
 
 
+def write_position(cache, pos: int, new) -> None:
+    """``cache[:, pos] = new`` in place, for ``cache`` (B, S, ...) and
+    ``new`` (B, ...). On a DTensor cache only the rank whose shard holds
+    ``pos`` writes, into its local shard (the reference's
+    ``dynamic_update_slice``): selecting ``pos`` from the DTensor would
+    gather the sharded sequence and write into the gathered copy."""
+    mesh = getattr(cache, "device_mesh", None)
+    if mesh is None:
+        cache[:, pos] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    start, size = 0, cache.shape[1]
+    new_pl = []
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(1):                  # mesh axes cut S major to minor
+            size //= mesh.size(i)
+            start += mesh.get_coordinate()[i] * size
+            p = Replicate()
+        elif p.is_shard() and p.dim > 1:
+            p = Shard(p.dim - 1)
+        new_pl.append(p)
+    new = new.redistribute(mesh, new_pl).to_local()
+    if start <= pos < start + size:
+        cache.to_local()[:, pos - start] = new
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      scale: float | None = None):
     """One-token attention against a KV cache.
@@ -105,23 +160,58 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     q: (B, 1, H, D); k_cache / v_cache: (B, Smax, Hkv, D); cache_len: an
     integer or (B,) number of valid cache entries (the new token's K/V must
     already be written at position cache_len - 1). A full pass over Smax.
+    On a mesh of processes each rank attends over its own slice of the
+    cache (``_decode_over_ranks``).
     """
+    mesh = process_mesh()
+    if mesh is not None:
+        return _decode_over_ranks(q, k_cache, v_cache, cache_len, scale,
+                                  mesh)
+    return _decode(q, k_cache, v_cache, cache_len, scale)
+
+
+def _decode(q, k_cache, v_cache, cache_len, scale, start: int = 0,
+            reduce=None):
+    """``decode_attention`` over cache positions ``start`` on; ``reduce``
+    combines the softmax's max and sum and the output across the ranks
+    that hold the other positions."""
     b, _, h, d = q.shape
     n_kv = k_cache.shape[2]
     g = h // n_kv
     scale = scale if scale is not None else d ** -0.5
+    reduce = reduce or (lambda t, op: t)
     qg = q.reshape(b, n_kv, g, d)
     s_all = _einsum32("bkgd,bskd->bkgs", qg, k_cache) * scale
-    pos = torch.arange(k_cache.shape[1], device=q.device)
+    pos = torch.arange(start, start + k_cache.shape[1], device=q.device)
     valid = pos[None, :] < torch.as_tensor(
         cache_len, device=q.device).reshape(-1, 1)               # (B, Smax)
     s_all = torch.where(valid[:, None, None, :], s_all, NEG_INF)
-    m = s_all.amax(dim=-1, keepdim=True)
+    m = reduce(s_all.amax(dim=-1, keepdim=True), "max")
     p = torch.exp(s_all - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = _einsum32("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30),
-                    v_cache)
+    l = reduce(p.sum(dim=-1, keepdim=True), "sum")
+    out = reduce(_einsum32("bkgs,bskd->bkgd", p / torch.clamp(l, min=1e-30),
+                           v_cache), "sum")
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _decode_over_ranks(q, k_cache, v_cache, cache_len: int, scale, mesh):
+    """Flash-decoding's split-KV on a mesh of processes, what XLA makes of
+    the reference's full pass over a sequence-sharded cache: each rank
+    scores its own cache positions for its batch rows (every head), and
+    the max, the sum and the output are all-reduced over the ranks that
+    split the sequence."""
+    names = mesh.axis_names
+    s_axes = tuple(a for a, p in zip(names, k_cache.placements)
+                   if p.is_shard(1))
+    b_entry = spec(tuple(a for a, p in zip(names, k_cache.placements)
+                         if p.is_shard(0)))[0]
+    layout = (b_entry, None, None, None)
+    kl = k_cache.to_local()
+    out = _decode(local_shard(q, mesh, layout, split=s_axes), kl,
+                  v_cache.to_local(), cache_len, scale,
+                  shard_index(k_cache, mesh, 1) * kl.shape[1],
+                  lambda t, op: psum(t, mesh, s_axes, op))
+    return from_local(out, mesh, layout, q.shape)
 
 
 def reference_attention(q, k, v, *, causal: bool = True,

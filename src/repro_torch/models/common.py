@@ -62,22 +62,121 @@ def logical(*axes) -> tuple:
     return tuple(out)
 
 
+def process_mesh():
+    """The active mesh when its ranks are processes (tensors on it are
+    DTensors), else None."""
+    mesh = active_mesh()
+    return mesh if mesh is not None and mesh.device_mesh is not None else None
+
+
 def shard(x, *axes):
     """``x`` laid out as ``logical(*axes)`` on the active mesh.
 
     The identity when no mesh is active and on a virtual mesh (all ranks
     on one device), as a sharding constraint is on a one-device mesh in
-    XLA. On a mesh whose ranks are processes, ``x`` must be a DTensor and
-    is redistributed to the spec's placements."""
-    mesh = active_mesh()
-    if mesh is None or mesh.device_mesh is None:
+    XLA. On a mesh whose ranks are processes, ``x`` is redistributed to
+    the spec's placements; so is its gradient, as
+    ``with_sharding_constraint`` constrains the cotangent too (a gradient
+    that arrives partial is reduced here, not carried further back)."""
+    mesh = process_mesh()
+    if mesh is None:
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         raise TypeError("shard: on a mesh of processes x must be a DTensor, "
                         f"got {type(x).__name__}")
-    return x.redistribute(mesh.device_mesh,
-                          placements(logical(*axes), mesh.axis_names))
+    dm = mesh.device_mesh
+    want = placements(logical(*axes), mesh.axis_names)
+    y = x.redistribute(dm, want)
+    if y.requires_grad:
+        y.register_hook(lambda g: g.redistribute(dm, want))
+    return y
+
+
+def replicated(x):
+    """``x``, a plain tensor every rank makes alike (positions, a table),
+    as a replicated DTensor on a mesh of processes; else ``x`` itself."""
+    mesh = process_mesh()
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = mesh.device_mesh
+    return DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                              run_check=False)
+
+
+def local_shard(t, mesh, s: tuple, *, split=True):
+    """The DTensor ``t`` laid out as spec ``s`` on ``mesh`` (a mesh of
+    processes), as this rank's local tensor: the entry to code that runs
+    per rank, as the body of the reference's ``shard_map``. The local
+    tensor's gradient keeps ``t``'s shards. Over a mesh axis ``s``
+    replicates ``t`` on, it is partial where the ranks split the work
+    (each adds its share, as ``shard_map`` transposes an input it does not
+    map) and replicated where they compute the same: ``split`` is True
+    (every such axis splits), False (none does) or the axes that do."""
+    from torch.distributed.tensor import DTensor, Partial
+    if not isinstance(t, DTensor):
+        raise TypeError("on a mesh of processes the per-rank code takes "
+                        f"DTensors, got {type(t).__name__}")
+    want = placements(s, mesh.axis_names)
+    return t.redistribute(mesh.device_mesh, want).to_local(grad_placements=[
+        Partial() if not p.is_shard() and (
+            split is True or (split and a in split)) else p
+        for a, p in zip(mesh.axis_names, want)])
+
+
+def psum(t, mesh, axes: tuple, op: str = "sum"):
+    """This rank's ``t`` reduced over the mesh ``axes`` (an all-reduce, the
+    reference's ``psum``); the ranks of the other axes hold their own."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not axes:
+        return t
+    pl = [Partial(op) if a in axes else Replicate() for a in mesh.axis_names]
+    return DTensor.from_local(t, mesh.device_mesh, pl, run_check=False
+                              ).redistribute(mesh.device_mesh, [
+                                  Replicate()] * len(pl)).to_local()
+
+
+def from_local(t, mesh, s: tuple, shape):
+    """This rank's result ``t`` as the DTensor of global ``shape``
+    (contiguous) laid out as spec ``s``: the exit of per-rank code."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    return DTensor.from_local(
+        t, mesh.device_mesh, placements(s, mesh.axis_names), run_check=False,
+        shape=shape, stride=tuple(math.prod(shape[i + 1:])
+                                  for i in range(len(shape))))
+
+
+def shard_index(t, mesh, dim: int) -> int:
+    """This rank's place among the shards of the DTensor ``t``'s dimension
+    ``dim`` (its mesh axes cut it major to minor)."""
+    i = 0
+    for a, p in zip(mesh.axis_names, t.placements):
+        if p.is_shard(dim):
+            i = i * mesh.shape[a] + mesh.device_mesh.get_local_rank(a)
+    return i
+
+
+def heads_over_ranks(mesh, n_heads: int):
+    """The spec entry of a head axis on ``mesh``: 'model' when its size
+    divides ``n_heads`` (each rank owns whole heads), else None (every
+    rank computes every head, as ``fit_spec`` drops an indivisible
+    axis)."""
+    tp = mesh.shape.get(MODEL_AXIS, 1)
+    return MODEL_AXIS if n_heads % tp == 0 else None
+
+
+def local_heads(t, mesh, head_dim: int):
+    """(B, S, H * head_dim) DTensor -> this rank's (B_l, S, H_l * head_dim)
+    of whole heads (``heads_over_ranks``), for a per-head recurrence."""
+    n = t.shape[-1] // head_dim
+    whole = t.redistribute(mesh.device_mesh, placements(
+        logical("batch", None, None), mesh.axis_names))
+    ax = heads_over_ranks(mesh, n)
+    return local_shard(whole.unflatten(-1, (n, head_dim)), mesh,
+                       logical("batch", None, ax, None),
+                       split=False).flatten(2)
 
 
 # --------------------------------------------------------------------------

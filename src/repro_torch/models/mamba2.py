@@ -13,11 +13,15 @@ float32, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .common import dense_init, rms_norm
+from ..distributed.sharding import batch_axes
+from .common import (dense_init, from_local, heads_over_ranks, local_heads,
+                     local_shard, logical, process_mesh, rms_norm)
 
 
 def init_mamba2(gen: torch.Generator, d_model: int, *, expand: int = 2,
@@ -86,7 +90,24 @@ def apply_mamba2(p, x, *, head_dim: int = 64, d_state: int = 64,
     dt = _softplus(dt_raw.float() + p["dt_bias"])                  # (B,S,H)
     A = -torch.exp(p["A_log"])                                     # (H,)
     loga = dt * A[None, None, :]                                   # <= 0
+    mesh = process_mesh()
+    scan = _ssd if mesh is None else functools.partial(_ssd_over_ranks,
+                                                       mesh=mesh)
+    y, h = scan(x_in, B, C, dt, loga, p["D"], head_dim=head_dim,
+                chunk=chunk)
+    y = y.reshape(bsz, s, d_inner)
+    # gated RMSNorm + out proj
+    y = rms_norm(y * F.silu(z.float()), p["norm_w"])
+    return y.to(btype) @ p["out_proj"].to(btype), h
 
+
+def _ssd(x_in, B, C, dt, loga, D, *, head_dim: int, chunk: int):
+    """The chunked scan of x_in (B, S, H * dh) with B, C (B, S, ds) and dt,
+    loga (B, S, H): (y (B, S, H, dh) with the D skip, final state
+    (B, H, dh, ds))."""
+    bsz, s, _ = x_in.shape
+    n_heads = dt.shape[-1]
+    d_state = B.shape[-1]
     lc = min(chunk, s)
     nc = -(-s // lc)
     pad = nc * lc - s
@@ -99,10 +120,10 @@ def apply_mamba2(p, x, *, head_dim: int = 64, d_state: int = 64,
     dtc = cpad(dt).reshape(bsz, nc, lc, n_heads)
     cum = torch.cumsum(cpad(loga).reshape(bsz, nc, lc, n_heads), dim=2)
     mask = torch.tril(torch.ones((lc, lc), dtype=torch.bool,
-                                 device=x.device))
+                                 device=x_in.device))
 
     h = torch.zeros((bsz, n_heads, head_dim, d_state), dtype=torch.float32,
-                    device=x.device)
+                    device=x_in.device)
     ys = []
     for c in range(nc):
         xk, Bk, Ck, dtk, cumk = (xh[:, c], Bc[:, c], Cc[:, c], dtc[:, c],
@@ -124,12 +145,35 @@ def apply_mamba2(p, x, *, head_dim: int = 64, d_state: int = 64,
         h = h * decay_tot[..., None, None] + dB
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(bsz, nc * lc, n_heads, head_dim)[:, :s]
-    y = y + p["D"][None, None, :, None] * xh.reshape(
+    y = y + D[None, None, :, None] * xh.reshape(
         bsz, nc * lc, n_heads, head_dim)[:, :s]
-    y = y.reshape(bsz, s, d_inner)
-    # gated RMSNorm + out proj
-    y = rms_norm(y * F.silu(z.float()), p["norm_w"])
-    return y.to(btype) @ p["out_proj"].to(btype), h
+    return y, h
+
+
+def _ssd_over_ranks(x_in, B, C, dt, loga, D, *, head_dim: int, chunk: int,
+                    mesh):
+    """``_ssd`` on a mesh of processes: heads are independent, so each rank
+    scans its own whole heads (``common.local_heads``) of its batch shard;
+    B and C are shared by the heads, and D's gradient sums the batch
+    shards'."""
+    n_heads = dt.shape[-1]
+    ax = heads_over_ranks(mesh, n_heads)
+    split = ax is not None
+    y, h = _ssd(local_heads(x_in, mesh, head_dim),
+                local_shard(B, mesh, logical("batch", None, None),
+                            split=split),
+                local_shard(C, mesh, logical("batch", None, None),
+                            split=split),
+                local_shard(dt, mesh, logical("batch", None, ax), split=False),
+                local_shard(loga, mesh, logical("batch", None, ax),
+                            split=False),
+                local_shard(D, mesh, logical(ax), split=batch_axes(mesh)),
+                head_dim=head_dim, chunk=chunk)
+    b, s = dt.shape[:2]
+    return (from_local(y, mesh, logical("batch", None, ax, None),
+                       (b, s, n_heads, head_dim)),
+            from_local(h, mesh, logical("batch", ax, None, None),
+                       (b, n_heads, head_dim, B.shape[-1])))
 
 
 def init_mamba_state(bsz: int, n_heads: int, head_dim: int, d_state: int,

@@ -38,7 +38,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import BATCH_AXES, MODEL_AXIS, act_fn, active_mesh, dense_init
+from .common import (BATCH_AXES, MODEL_AXIS, act_fn, active_mesh, dense_init,
+                     from_local, local_shard, logical, process_mesh, psum)
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int):
@@ -154,11 +155,26 @@ def _slice_count(f_total: int, b: int) -> int:
     dsize = math.prod(mesh.shape[a] for a in BATCH_AXES if a in mesh.shape)
     if f_total % tp or b % dsize:
         return 1
-    if mesh.device_mesh is not None:
-        raise NotImplementedError(
-            "MoE's F slices over a mesh of processes need an all-reduce "
-            "across ranks; the port runs them on a virtual mesh only")
     return tp
+
+
+def _experts_over_ranks(params, x, mesh, *, top_k: int, cap: int, act: str):
+    """The reference's ``shard_map`` + ``psum`` on a mesh of processes:
+    each rank routes and dispatches its local batch, runs its F slice of
+    the experts and combines it to a (B_local, S, D) partial; one
+    all-reduce over 'model' sums the tp partials. ``x`` and the weights
+    are DTensors (``common.local_shard`` gives each rank its part)."""
+    x_spec = logical("batch", None, None)
+    x_l = local_shard(x, mesh, x_spec)
+    wi = local_shard(params["wi"], mesh, (None, None, MODEL_AXIS))
+    wg = local_shard(params["wg"], mesh, (None, None, MODEL_AXIS))
+    wo = local_shard(params["wo"], mesh, (None, MODEL_AXIS, None))
+    router = local_shard(params["router"], mesh, ())
+    r = route(router, x_l, top_k=top_k, cap=cap)
+    part = _experts_combine(wi, wg, wo,
+                            _dispatch(x_l, r, router.shape[-1], cap), r,
+                            top_k=top_k, act=act)
+    return from_local(psum(part, mesh, (MODEL_AXIS,)), mesh, x_spec, x.shape)
 
 
 def apply_moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
@@ -174,15 +190,18 @@ def apply_moe(params, x, *, top_k: int, capacity_factor: float = 1.25,
     Otherwise tp = 1: one slice, the whole F, which is the reference's
     unsharded path. Routing and dispatch do not depend on F, so they are
     computed once for all slices; the data axes need no split, because
-    dispatch is batch-local. A mesh whose ranks are processes would need
-    the partials all-reduced across them; that waits for a machine with
-    several cards.
+    dispatch is batch-local. On a mesh whose ranks are processes each rank
+    computes its own slice's partial and an all-reduce over 'model' sums
+    them (``_experts_over_ranks``).
     """
     b, s, d = x.shape
     e = params["router"].shape[-1]
     cap = capacity(s, top_k, e, capacity_factor)
     f_total = params["wi"].shape[-1]
     tp = _slice_count(f_total, b)
+    if tp > 1 and process_mesh() is not None:
+        return _experts_over_ranks(params, x, process_mesh(), top_k=top_k,
+                                   cap=cap, act=act)
 
     r = route(params["router"], x, top_k=top_k, cap=cap)
     xe = _dispatch(x, r, e, cap)

@@ -19,10 +19,14 @@ and the last one is padded with zeros.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, rms_norm
+from ..distributed.sharding import batch_axes
+from .common import (dense_init, from_local, heads_over_ranks, local_heads,
+                     local_shard, logical, process_mesh, rms_norm, shard)
 
 WRAW_CLAMP = 0.65
 CHUNK = 32
@@ -113,6 +117,22 @@ def _wkv_chunked(r, k, v, logw, u, head_dim: int):
     return y, S
 
 
+def _wkv_over_ranks(r, k, v, logw, u, head_dim: int, *, mesh):
+    """``_wkv_chunked`` on a mesh of processes: heads are independent, so
+    each rank runs the recurrence of its own whole heads
+    (``common.local_heads``) of its batch shard."""
+    b, s, d = r.shape
+    ax = heads_over_ranks(mesh, d // head_dim)
+    y, S = _wkv_chunked(*(local_heads(t, mesh, head_dim)
+                          for t in (r, k, v, logw)),
+                        local_shard(u, mesh, logical(ax, None),
+                                    split=batch_axes(mesh)),
+                        head_dim)
+    return (from_local(y, mesh, logical("batch", None, ax), (b, s, d)),
+            from_local(S, mesh, logical("batch", ax, None, None),
+                       (b, d // head_dim, head_dim, head_dim)))
+
+
 def _tmix_inputs(p, x, x_prev):
     xs = _shift(x, x_prev)
     xf, xsf = x.float(), xs.float()
@@ -131,7 +151,10 @@ def _tmix_out(p, y, g, x_dtype, head_dim: int):
     b, s, d = y.shape
     ones = torch.ones((head_dim,), dtype=torch.float32, device=y.device)
     y = rms_norm(y.reshape(b, s, d // head_dim, head_dim), ones)
-    y = y.reshape(b, s, d) * p["ln_w"][None, None, :]
+    # whole channels on a mesh of processes: Wo's row-parallel gradient
+    # arrives channel-sharded, and 'model' need not divide the heads
+    y = shard(y.reshape(b, s, d), "batch", None, None) \
+        * p["ln_w"][None, None, :]
     y = y * F.silu(g)
     return (y @ p["Wo"]).to(x_dtype)
 
@@ -142,7 +165,10 @@ def apply_rwkv_tmix(p, x, x_prev=None, head_dim: int = 64):
     if x_prev is None:
         x_prev = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
     r, k, v, g, logw = _tmix_inputs(p, x, x_prev)
-    y, S = _wkv_chunked(r, k, v, logw, p["u"], head_dim)
+    mesh = process_mesh()
+    wkv = _wkv_chunked if mesh is None else functools.partial(
+        _wkv_over_ranks, mesh=mesh)
+    y, S = wkv(r, k, v, logw, p["u"], head_dim)
     return _tmix_out(p, y, g, x.dtype, head_dim), (x[:, -1:], S)
 
 
@@ -163,15 +189,41 @@ def decode_rwkv_tmix(p, x, state, head_dim: int = 64):
     """x (B, 1, D); state {'x': (B, 1, D), 'S': (B, H, N, N)} -> (y, new
     state)."""
     b, _, d = x.shape
-    h = d // head_dim
     r, k, v, g, logw = _tmix_inputs(p, x, state["x"])
+    mesh = process_mesh()
+    step = _wkv_step if mesh is None else functools.partial(
+        _wkv_step_over_ranks, mesh=mesh)
+    y, S_new = step(r, k, v, logw, state["S"], p["u"], head_dim)
+    return (_tmix_out(p, y.reshape(b, 1, d), g, x.dtype, head_dim),
+            {"x": x, "S": S_new})
+
+
+def _wkv_step(r, k, v, logw, S, u, head_dim: int):
+    """One token of the recurrence: r, k, v, logw (B, 1, H * N), S
+    (B, H, N, N) -> (y (B, H, N), new S)."""
+    b, _, d = r.shape
+    h = d // head_dim
     rh = r.reshape(b, h, head_dim)
     kh = k.reshape(b, h, head_dim)
     vh = v.reshape(b, h, head_dim)
     w = torch.exp(logw.reshape(b, h, head_dim))
-    S = state["S"]
     kv = torch.einsum("bhn,bhm->bhnm", kh, vh)
-    y = torch.einsum("bhn,bhnm->bhm", rh, S + p["u"][None, :, :, None] * kv)
-    S_new = S * w[..., None] + kv
-    return (_tmix_out(p, y.reshape(b, 1, d), g, x.dtype, head_dim),
-            {"x": x, "S": S_new})
+    y = torch.einsum("bhn,bhnm->bhm", rh, S + u[None, :, :, None] * kv)
+    return y, S * w[..., None] + kv
+
+
+def _wkv_step_over_ranks(r, k, v, logw, S, u, head_dim: int, *, mesh):
+    """``_wkv_step`` on a mesh of processes, each rank on its own heads."""
+    b, _, d = r.shape
+    h = d // head_dim
+    ax = heads_over_ranks(mesh, h)
+    y, S = _wkv_step(*(local_heads(t, mesh, head_dim)
+                       for t in (r, k, v, logw)),
+                     local_shard(S, mesh, logical("batch", ax, None, None),
+                                 split=False),
+                     local_shard(u, mesh, logical(ax, None),
+                                 split=batch_axes(mesh)),
+                     head_dim)
+    return (from_local(y, mesh, logical("batch", ax, None), (b, h, head_dim)),
+            from_local(S, mesh, logical("batch", ax, None, None),
+                       (b, h, head_dim, head_dim)))

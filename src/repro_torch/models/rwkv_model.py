@@ -7,7 +7,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .common import embed_init
+from .common import embed_init, shard
 from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, decode_rwkv_tmix,
                     init_rwkv_cmix, init_rwkv_tmix)
 from .transformer import (_apply_norm, _dtype, _embed, _init_norm,
@@ -41,7 +41,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 def forward(params, cfg: ModelConfig, tokens):
     """tokens (B, S) -> final-norm hiddens (B, S, D) in cfg.dtype."""
-    x = _embed(params, cfg, tokens)
+    x = shard(_embed(params, cfg, tokens), "batch", None, None)
     block = remat(lambda p, x: _block_step(p, cfg, x), cfg)
     for p in layers(params["blocks"]):
         x = block(p, x)
@@ -53,7 +53,7 @@ def _block_step(p, cfg: ModelConfig, x):
                            head_dim=cfg.rwkv_head_dim)
     x = x + y
     y, _ = apply_rwkv_cmix(p["cmix"], _apply_norm(cfg, p["norm2"], x))
-    return x + y
+    return shard(x + y, "batch", None, None)
 
 
 def lm_loss(params, cfg: ModelConfig, batch):

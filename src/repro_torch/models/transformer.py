@@ -35,10 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed.sharding import spec
 from ..pytree import tree_map
-from .attention import decode_attention, flash_attention
-from .common import (act_fn, apply_rope, dense_init, embed_init, layer_norm,
-                     rms_norm)
+from .attention import decode_attention, flash_attention, write_position
+from .common import (BATCH_AXES, act_fn, apply_rope, dense_init, embed_init,
+                     from_local, layer_norm, local_shard, logical,
+                     process_mesh, psum, replicated, rms_norm, shard,
+                     shard_index)
 from .moe import apply_moe, init_moe
 
 #: the families this module builds (zamba and rwkv_model build the others)
@@ -245,13 +248,17 @@ def ffn_block(p, cfg: ModelConfig, x):
 
 
 def _embed(params, cfg: ModelConfig, tokens):
-    """The token embeddings in cfg.dtype. ``F.embedding`` gathers the same
-    rows as indexing, and its backward sums a token's repeats in a fixed
-    order on the CPU and the card; indexing's backward (``index_put_``
-    with accumulate) adds them atomically across CPU threads, so two
-    identical training runs could differ."""
+    """The token embeddings in cfg.dtype, batch-sharded on a mesh of
+    processes. ``F.embedding`` gathers the same rows as indexing, and its
+    backward sums a token's repeats in a fixed order on the CPU and the
+    card; indexing's backward (``index_put_`` with accumulate) adds them
+    atomically across CPU threads, so two identical training runs could
+    differ."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-    return F.embedding(tokens, params["embed"]).to(_dtype(cfg))
+    x = F.embedding(tokens, params["embed"]).to(_dtype(cfg))
+    # a vocab-sharded table gives partial rows; whole them before anything
+    # else (a norm, the vlm's splice) meets them
+    return shard(x, "batch", *([None] * (x.dim() - 1)))
 
 
 def pos_conv(pc, x):
@@ -259,13 +266,37 @@ def pos_conv(pc, x):
     ``conv_general_dilated`` with WIO weights, 16 feature groups and
     "SAME" padding, as ``conv1d`` with (D, D/16, 128) weights over the
     input padded by hand."""
-    k = pc["w"].shape[0]
+    mesh = process_mesh()
+    if mesh is not None:
+        return _pos_conv_over_ranks(pc["w"], x, mesh)
+    return _pos_conv(pc["w"], x, POS_CONV_GROUPS)
+
+
+def _pos_conv(w, x, groups: int):
+    k = w.shape[0]
     left = (k - 1) // 2                      # "SAME": 63 left, 64 right
     xt = torch.nn.functional.pad(x.float().transpose(1, 2),
                                  (left, k - 1 - left))
-    out = torch.nn.functional.conv1d(xt, pc["w"].float().permute(2, 1, 0),
-                                     groups=POS_CONV_GROUPS)
+    out = torch.nn.functional.conv1d(xt, w.float().permute(2, 1, 0),
+                                     groups=groups)
     return out.transpose(1, 2)
+
+
+def _pos_conv_over_ranks(w, x, mesh):
+    """``pos_conv`` on a mesh of processes, with w's output channels over
+    'model' (its spec) as XLA runs it: each rank convolves the input
+    channels of its own groups (a group's input and output channels are
+    the same slice) and the output stays channel-sharded."""
+    axes = tuple(a for a, p in zip(mesh.axis_names, w.placements)
+                 if p.is_shard(2))
+    wl = local_shard(w, mesh, spec(None, None, axes))
+    d = x.shape[-1]
+    n = d // wl.shape[2]                     # channel slices
+    i = shard_index(w, mesh, 2)
+    x_spec = logical("batch", None, None)
+    xl = local_shard(x, mesh, x_spec)[..., i * d // n:(i + 1) * d // n]
+    out = _pos_conv(wl, xl, POS_CONV_GROUPS // n)
+    return from_local(out, mesh, spec(x_spec[0], None, axes), x.shape)
 
 
 def _inputs(params, cfg: ModelConfig, tokens, embeds, vision_embeds):
@@ -281,7 +312,8 @@ def _inputs(params, cfg: ModelConfig, tokens, embeds, vision_embeds):
 
 
 def _positions(b: int, s: int, device):
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+    return shard(replicated(torch.arange(s, dtype=torch.int32, device=device)
+                            .expand(b, s)), "batch", None)
 
 
 def _block_collect(p, cfg: ModelConfig, x, positions):
@@ -290,9 +322,10 @@ def _block_collect(p, cfg: ModelConfig, x, positions):
                    positions)
     o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk,
                         k_chunk=cfg.attn_k_chunk)
-    x = x + _attn_out(p["attn"], cfg, o, x.dtype)
+    x = shard(x + _attn_out(p["attn"], cfg, o, x.dtype),
+              "batch", None, None)
     x = x + ffn_block(p["ffn"], cfg, _apply_norm(cfg, p["norm2"], x))
-    return x, (k, v)
+    return shard(x, "batch", None, None), (k, v)
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
@@ -304,6 +337,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     if cfg.family == "encoder":
         pc = params["pos_conv"]
         x = x + act_fn("gelu")(pos_conv(pc, x) + pc["b"]).to(x.dtype)
+    x = shard(x, "batch", None, None)
     positions = _positions(*x.shape[:2], x.device)
     block = remat(lambda p, x: _block_collect(p, cfg, x, positions)[0], cfg)
     for p in layers(params["blocks"]):
@@ -326,8 +360,11 @@ def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels):
     a time instead of keeping every chunk's. The chunks' sums add in chunk
     order, in float32.
     """
-    b, s, _ = hidden.shape
     w = lm_head_weight(params, cfg).to(hidden.dtype)
+    mesh = process_mesh()
+    if mesh is not None:
+        return _ce_over_ranks(hidden, labels, w, cfg, mesh)
+    b, s, _ = hidden.shape
     c = min(cfg.loss_chunk, s)
     n = -(-s // c)
     pad = n * c - s
@@ -362,6 +399,57 @@ def _chunk_nll(h, lab, w, vocab: int):
     return ((lse - tgt) * mask).sum(), mask.sum()
 
 
+def _ce_over_ranks(hidden, labels, w, cfg: ModelConfig, mesh):
+    """``chunked_ce_loss`` on a mesh of processes, each rank on its own
+    batch rows and slice of a vocab-sharded head (Megatron's
+    vocab-parallel cross entropy, what XLA makes of the reference's
+    sharded logsumexp): the max, the sum of exponentials and the target
+    logit are all-reduced over the vocab slices, and the loss's two sums
+    over the batch. Returns the loss as a replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    names = mesh.axis_names
+    v_axes = tuple(a for a, p in zip(names, w.placements) if p.is_shard(1))
+    b_axes = tuple(a for a in BATCH_AXES if a in names)
+    hl = local_shard(hidden, mesh, logical("batch", None, None),
+                     split=v_axes)
+    wl = local_shard(w, mesh, spec(None, v_axes), split=b_axes)
+    labl = local_shard(labels, mesh, logical("batch", None),
+                       split=False).long()
+    s = hl.shape[1]
+    c = min(cfg.loss_chunk, s)
+    n = -(-s // c)
+    pad = n * c - s
+    hl = F.pad(hl, (0, 0, 0, pad))
+    labl = F.pad(labl, (0, pad), value=-1)
+    lo = shard_index(w, mesh, 1) * wl.shape[-1]       # this slice's first id
+
+    def nll(h, lab):
+        logits = (h @ wl).float()                               # (B, c, V/n)
+        cols = lo + torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(cols < cfg.vocab_size, logits, -1e30)
+        m = psum(logits.detach().amax(dim=-1), mesh, v_axes, "max")
+        lse = torch.log(psum(torch.exp(logits - m[..., None]).sum(-1), mesh,
+                             v_axes)) + m
+        own = (lab >= lo) & (lab < lo + logits.shape[-1])
+        idx = torch.clamp(lab - lo, 0, logits.shape[-1] - 1)[..., None]
+        tgt = psum(torch.where(own, torch.gather(logits, -1, idx)[..., 0],
+                               0.0), mesh, v_axes)
+        mask = (lab >= 0).float()
+        return ((lse - tgt) * mask).sum(), mask.sum()
+    tot = torch.zeros((), dtype=torch.float32, device=hl.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hl.device)
+    for i in range(n):
+        args = (hl[:, i * c:(i + 1) * c], labl[:, i * c:(i + 1) * c])
+        t, m = (checkpoint(nll, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else nll(*args))
+        tot = tot + t
+        cnt = cnt + m
+    loss = psum(tot, mesh, b_axes) / torch.clamp(psum(cnt, mesh, b_axes),
+                                                 min=1.0)
+    return DTensor.from_local(loss, mesh.device_mesh,
+                              [Replicate()] * len(names), run_check=False)
+
+
 def lm_loss(params, cfg: ModelConfig, batch):
     """The LM loss of ``batch``: tokens (or the encoder's ``embeds``, with
     the vlm's ``vision_embeds``) and labels."""
@@ -385,7 +473,8 @@ def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
     S (vision tokens included).
     """
     check_family(cfg)
-    x = _inputs(params, cfg, tokens, embeds, vision_embeds)
+    x = shard(_inputs(params, cfg, tokens, embeds, vision_embeds),
+              "batch", None, None)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     ks, vs = [], []
@@ -426,7 +515,7 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     and ``pos + 1``)."""
     check_family(cfg)
     pos = int(cache["pos"])
-    x = _embed(params, cfg, tokens)[:, None, :]
+    x = shard(_embed(params, cfg, tokens)[:, None, :], "batch", None, None)
     b = x.shape[0]
     dt = x.dtype
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
@@ -434,8 +523,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     for i, p in enumerate(layers(params["blocks"])):
         q, k, v = _qkv(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
                        positions)
-        kc[i, :, pos] = k[:, 0].to(kc.dtype)
-        vc[i, :, pos] = v[:, 0].to(vc.dtype)
+        write_position(kc[i], pos, k[:, 0].to(kc.dtype))
+        write_position(vc[i], pos, v[:, 0].to(vc.dtype))
         o = decode_attention(q, kc[i], vc[i], pos + 1)
         x = x + _attn_out(p["attn"], cfg, o, dt)
         x = x + ffn_block(p["ffn"], cfg, _apply_norm(cfg, p["norm2"], x))

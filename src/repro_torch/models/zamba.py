@@ -13,8 +13,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import decode_attention
-from .common import embed_init
+from .attention import decode_attention, write_position
+from .common import embed_init, shard
 from .mamba2 import apply_mamba2, decode_mamba2, init_mamba2
 from .transformer import (_apply_norm, _attn_out, _dtype, _embed,
                           _init_norm, _positions, _qkv, attn_block,
@@ -60,18 +60,19 @@ def n_groups(cfg: ModelConfig):
 def _mamba_step(p, cfg: ModelConfig, x):
     y, _ = apply_mamba2(p["mamba"], _apply_norm(cfg, p["norm"], x),
                         head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state)
-    return x + y
+    return shard(x + y, "batch", None, None)
 
 
 def _shared_step(p, cfg: ModelConfig, x, positions):
     x = x + attn_block(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
                        positions)
-    return x + ffn_block(p["mlp"], cfg, _apply_norm(cfg, p["norm2"], x))
+    x = x + ffn_block(p["mlp"], cfg, _apply_norm(cfg, p["norm2"], x))
+    return shard(x, "batch", None, None)
 
 
 def forward(params, cfg: ModelConfig, tokens):
     """tokens (B, S) -> final-norm hiddens (B, S, D) in cfg.dtype."""
-    x = _embed(params, cfg, tokens)
+    x = shard(_embed(params, cfg, tokens), "batch", None, None)
     positions = _positions(*x.shape[:2], x.device)
     mamba = remat(lambda p, x: _mamba_step(p, cfg, x), cfg)
     shared = remat(lambda p, x: _shared_step(p, cfg, x, positions), cfg)
@@ -142,8 +143,8 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
         kc, vc = cache["k"][g], cache["v"][g]
         q, k, v = _qkv(shared["attn"], cfg,
                        _apply_norm(cfg, shared["norm1"], x), positions)
-        kc[:, pos] = k[:, 0].to(kc.dtype)
-        vc[:, pos] = v[:, 0].to(vc.dtype)
+        write_position(kc, pos, k[:, 0].to(kc.dtype))
+        write_position(vc, pos, v[:, 0].to(vc.dtype))
         o = decode_attention(q, kc, vc, pos + 1)
         x = x + _attn_out(shared["attn"], cfg, o, dt)
         x = x + ffn_block(shared["mlp"], cfg,

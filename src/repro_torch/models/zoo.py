@@ -15,15 +15,18 @@ recurrent families (hybrid, rwkv), and ``init_cache`` / ``decode_step``
 are None for the encoder. ``loss`` takes the reference's batches: tokens
 and labels (-1 = masked); the encoder's ``embeds`` in place of tokens;
 the vlm's ``vision_embeds`` over the first positions, whose labels the
-caller sets to -1. ``input_specs`` / ``cache_specs`` (the dry-run's shape stand-ins)
-wait for the dry-run's slice.
+caller sets to -1. ``input_specs`` / ``cache_specs`` give a cell's
+inputs and decode cache as meta tensors, the dry-run's stand-ins.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Optional
 
-from ..configs.base import ModelConfig
+import torch
+
+from ..configs.base import ModelConfig, ShapeConfig
+from ..pytree import eval_shape
 from . import rwkv_model, transformer, zamba
 
 
@@ -72,3 +75,44 @@ def build(cfg: ModelConfig) -> Model:
         init_cache=lambda b, s, torch_device="cuda": recurrent.init_cache(
             cfg, b, s, torch_device=torch_device),
         decode_step=lambda p, c, t: recurrent.decode_step(p, cfg, c, t))
+
+
+# --------------------------------------------------------------------------
+# Shape stand-ins for the dry-run (no allocation)
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Model inputs for an (arch x shape) cell as meta tensors (the
+    reference's ``ShapeDtypeStruct`` stand-ins): tokens and labels (the
+    encoder's ``embeds`` in place of tokens, the vlm's ``vision_embeds``
+    beside them, no labels at prefill), or (b,) tokens at decode."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encoder":
+            batch = {"embeds": spec((b, s, cfg.d_model), dt),
+                     "labels": spec((b, s), i32)}
+        else:
+            batch = {"tokens": spec((b, s), i32), "labels": spec((b, s), i32)}
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = spec((b, cfg.n_vision_tokens,
+                                           cfg.d_model), dt)
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return batch
+    if shape.kind == "decode":
+        return {"tokens": spec((b,), i32)}
+    raise ValueError(shape.kind)
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The family's decode cache for ``shape`` as meta tensors
+    (``pytree.eval_shape`` of ``init_cache``: a 500k-token cache costs
+    nothing)."""
+    model = build(cfg)
+    return eval_shape(model.init_cache, shape.global_batch, shape.seq_len,
+                      torch_device="cpu")

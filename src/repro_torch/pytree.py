@@ -7,6 +7,9 @@ order, sequences by index. A leaf's path is spelled as the reference's
 checkpointer spells it: a dict key as itself, a dataclass field as
 ``.name``, a sequence index as its number, joined by ``|`` (so
 ``'.params|blocks|attn|wq'``, ``'.step'``).
+
+``eval_shape`` is ``jax.eval_shape``'s counterpart: a tree's shapes and
+dtypes without its storage, as meta tensors.
 """
 from __future__ import annotations
 
@@ -81,3 +84,17 @@ def tree_map(fn: Callable, tree, *rest):
         return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
                           for i, t in enumerate(tree))
     return fn(tree, *rest)
+
+
+def eval_shape(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)``'s tree with every tensor leaf a meta tensor
+    of its shape and dtype. ``fn`` runs under ``FakeTensorMode``: it draws
+    nothing and allocates nothing, so a full-size model's ``init`` (which
+    keeps its CPU generator) takes seconds and leaves host memory flat."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        out = fn(*args, **kwargs)
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta")
+                    if isinstance(t, torch.Tensor) else t, out)

@@ -4,9 +4,10 @@ eager has no HLO, so the port counts what actually executes).
 
 ``analyze(fn, *args, **kwargs)`` runs ``fn`` once and records:
 
-  flops: ``torch.utils.flop_counter.FlopCounterMode`` over every executed
-         op (matrix products, convolutions, attention; elementwise ops
-         count 0, where the reference charges 1 an element). Every
+  flops: ``torch.utils.flop_counter``'s formulas over every executed op,
+         by ``FlopCounterMode``'s rules (matrix products, convolutions,
+         attention; elementwise ops count 0, where the reference charges 1
+         an element). Every
          executed op counts, so a Python loop counts by its trips, which is
          what ``hlo_cost`` works out for ``while`` loops from their trip
          counts, and a backward under activation checkpointing counts the
@@ -19,18 +20,30 @@ eager has no HLO, so the port counts what actually executes).
   collectives: per-kind operand bytes of the ``c10d`` / functional
          collectives in the same dispatch record (the ops
          ``torch.distributed.tensor.debug.CommDebugMode`` names).
+  peak_bytes: an estimate of the most bytes the run's own results held at
+         once, the counterpart of XLA's ``temp_size_in_bytes``: each
+         counted op's results are live from the op until their tensors
+         are freed (a ``weakref`` finalizer), a view keeps its base live,
+         and the arguments ``fn`` was given are not included. The step's
+         own outputs (a train step's new state) are.
 
-Counts are per process. On DTensors ``FlopCounterMode`` counts GLOBAL
-FLOPs, so a per-device figure must come from a run on local tensors.
+Counts are per process, which on DTensors is per rank: the recorder
+declines the ops whose arguments are DTensors, so it counts the local
+ops DTensor runs on the rank's shards and the collectives it runs for
+them, never the global op. DTensor's sharding propagation runs each op
+once more on fake tensors of the GLOBAL shape; ops on fake tensors pass
+through uncounted. So a run to be counted holds real or meta tensors
+(the dry-run's are meta), not fake ones.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -42,8 +55,16 @@ _KIND_OF = (("allreduce", "all-reduce"), ("all_reduce", "all-reduce"),
             ("alltoall", "all-to-all"), ("all_to_all", "all-to-all"),
             ("send", "collective-permute"))
 
-#: ops that alias their input without their schema saying so
+#: ops that alias their input without their schema saying so, and the
+#: functional collectives' wrappers, which move no data
 _VIEWS = (torch.ops.aten._unsafe_view,)
+_WRAPPERS = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def _is_view(func) -> bool:
+    return (func.is_view or func.overloadpacket in _VIEWS or (
+        func.namespace == "_c10d_functional" and
+        func.__name__.split(".")[0] in _WRAPPERS))
 
 
 @dataclasses.dataclass
@@ -52,6 +73,7 @@ class Cost:
     bytes: float = 0.0
     collectives: dict = dataclasses.field(
         default_factory=lambda: {k: 0.0 for k in COLLECTIVES})
+    peak_bytes: float = 0.0
 
 
 def _nbytes(tree) -> int:
@@ -82,28 +104,109 @@ def _collective_operand(func, args):
     return args[0]
 
 
+def _keep(*_):
+    """A finalizer's no-op: its arguments stay alive until it runs."""
+
+
+def _subclass_types():
+    """(DTensor, FakeTensor); DTensor is None where torch lacks it."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:                     # torch built without distributed
+        DTensor = None
+    from torch._subclasses.fake_tensor import FakeTensor
+    return DTensor, FakeTensor
+
+
+_DECOMPOSES: dict = {}
+
+
+def _decomposes(func) -> bool:
+    """Whether ``func`` has a CompositeImplicitAutograd kernel, the ops
+    ``FlopCounterMode`` counts by their decomposition."""
+    if func not in _DECOMPOSES:
+        _DECOMPOSES[func] = torch._C._dispatch_has_kernel_for_dispatch_key(
+            func.name(), "CompositeImplicitAutograd")
+    return _DECOMPOSES[func]
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
 class _Record(TorchDispatchMode):
+    """Counts every op it runs. FLOPs follow ``FlopCounterMode``'s rules:
+    ``flop_registry``'s formula for an op it lists, and an op with a
+    decomposition counted by its parts (whose bytes the op's own count
+    already holds)."""
+
     def __init__(self, cost: Cost):
         super().__init__()
         self.cost = cost
+        self.live = 0
+        self.inner = 0
+        self.dtensor, self.fake = _subclass_types()
+
+    def _free(self, n: int) -> None:
+        self.live -= n
+
+    def _hold(self, func, ins, outs) -> None:
+        """``outs`` live until freed; a view's keep its base."""
+        if _is_view(func):
+            for t in outs:
+                weakref.finalize(t, _keep, ins[0] if ins else None)
+            return
+        for t in outs:
+            if any(t is a for a in ins):      # written in place
+                continue
+            n = t.numel() * t.element_size()
+            self.live += n
+            weakref.finalize(t, self._free, n)
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        if self.dtensor is not None and any(
+                issubclass(t, self.dtensor) for t in types):
+            return NotImplemented           # DTensor runs the local ops
+        if any(issubclass(t, self.fake) for t in types):
+            return func(*args, **kwargs)    # sharding propagation
+        out = None
+        if func is not torch.ops.prim.device.default and \
+                func.overloadpacket not in flop_registry and \
+                _decomposes(func):
+            self.inner += 1
+            try:
+                with self:
+                    out = func.decompose(*args, **kwargs)
+            finally:
+                self.inner -= 1
+        if out is None or out is NotImplemented:
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func.overloadpacket)
+            if formula is not None:
+                self.cost.flops += formula(*args, **kwargs, out_val=out)
+        outs = _tensors(out)
+        if any(isinstance(t, self.fake) for t in outs):
+            return out                      # propagation's factories
+        if self.inner:
+            return out
+        ins = _tensors((args, kwargs))
         kind = _collective_kind(func)
         if kind is not None:
             self.cost.collectives[kind] += _nbytes(
                 _collective_operand(func, args))
-        if not (func.is_view or func.overloadpacket in _VIEWS):
-            self.cost.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+        if not _is_view(func):
+            self.cost.bytes += sum(t.numel() * t.element_size()
+                                   for t in ins + outs)
+        self._hold(func, ins, outs)
         return out
 
 
 def analyze(fn, *args, **kwargs) -> Cost:
     """Run ``fn(*args, **kwargs)`` once and count its cost."""
     cost = Cost()
-    with FlopCounterMode(display=False) as flops, _Record(cost):
+    with _Record(cost):
         fn(*args, **kwargs)
-    cost.flops = float(flops.get_total_flops())
+    cost.flops = float(cost.flops)
     return cost
-

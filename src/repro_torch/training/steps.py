@@ -38,6 +38,17 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
                                        device=resolve_device(torch_device)))
 
 
+def _laid_out_as(grad, param):
+    """``grad`` in its parameter's layout. On a mesh of processes a
+    gradient arrives partial over the axes its parameter is replicated on
+    (each data rank's batch adds a share); redistributing it is the
+    data-parallel all-reduce. Plain tensors pass through."""
+    want = getattr(param, "placements", None)
+    if want is None or tuple(grad.placements) == tuple(want):
+        return grad
+    return grad.redistribute(param.device_mesh, want)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                     total_steps: int = 10_000, warmup_steps: int = 200,
                     max_grad_norm: float = 1.0) -> Callable:
@@ -55,9 +66,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             params = tree_map(lambda p: p.detach().requires_grad_(),
                               state.params)
             loss = model.loss(params, batch)
-            grads = unflatten(params, torch.autograd.grad(
-                loss, leaves(params), allow_unused=True,
-                materialize_grads=True))
+            grads = unflatten(params, [_laid_out_as(g, p) for g, p in zip(
+                torch.autograd.grad(loss, leaves(params), allow_unused=True,
+                                    materialize_grads=True),
+                leaves(params))])
         del params
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, max_grad_norm)

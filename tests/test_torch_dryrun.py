@@ -1,0 +1,586 @@
+"""The port's dry-run (``launch.dryrun``, ``models.zoo.input_specs`` /
+``cache_specs``, ``pytree.eval_shape``, ``roofline.op_cost``'s per-rank
+count), the models on DTensors over fake worlds (the reference's sharding
+constraints) and MoE's F slices across real ranks, against the JAX
+package's.
+
+Exactness, fixed before the port was written:
+  * exact: the inputs' and decode caches' shapes and dtypes for every
+    cell against the reference's ``jax.eval_shape``; parameter counts and
+    per-rank parameter bytes on both production meshes against the
+    reference's fitted specs; ``model_flops`` of every cell, Ising
+    included; the (1, 1) trace's FLOPs, bytes, peak and argument bytes
+    against ``op_cost.analyze`` of the real step; per-rank FLOPs on a
+    (4, 1) world against the (1, 1) count at a quarter of the batch; a
+    megatron pair's local FLOPs and its all-reduce's bytes on (16, 16);
+  * bitwise: MoE's F slices across 2 gloo ranks against the virtual
+    (1, 2) mesh, and the routing at tp = 2 and 4;
+  * ``tests/test_torch_moe.py``'s rtol=1e-4, atol=1e-5: the slices across
+    4 gloo ranks, every gradient of the MoE layer, and the losses and
+    three decode steps' logits of reduced qwen3-0.6b, hubert-xlarge,
+    zamba2-7b and rwkv6-3b on (1, 2) and (2, 2) gloo meshes against one
+    process;
+    their gradients at ``tests/test_torch_train.py``'s rtol 1e-3, atol
+    1e-4 of each leaf's largest magnitude.
+
+A fake world (``"fake"`` backend) and a gloo world each run in child
+processes, so no default group leaks into the next test of a worker.
+"""
+import functools
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as r_configs
+from repro.configs.base import SHAPES as R_SHAPES
+from repro.core import DeviceModel as RDeviceModel
+from repro.distributed import sharding as r_sharding
+from repro.models import build as r_build
+from repro.models import cache_specs as r_cache_specs
+from repro.models import input_specs as r_input_specs
+from repro.roofline import analysis as r_analysis
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.core import DeviceModel
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import cache_specs, input_specs
+from repro_torch.pytree import eval_shape, flatten_with_paths, leaves
+from repro_torch.roofline import analyze, count_params, model_flops
+from repro_torch.training import init_train_state, make_train_step
+
+ROOT = Path(__file__).resolve().parents[1]
+RTOL, ATOL = 1e-4, 1e-5
+ARCHS = sorted(a for a, c in r_configs.REGISTRY.items()
+               if c.family != "ising")
+CELLS = [(a, s) for a, s, _ in configs.cells()]
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+                OMP_NUM_THREADS="1")
+
+
+def _in_world(world: int, body: str, timeout: int = 240) -> dict:
+    """``body`` as rank 0 of a fake world of ``world`` ranks in a child
+    process; it prints one JSON line."""
+    code = textwrap.dedent(f"""
+        import json
+        import logging
+        import torch
+        torch.set_num_threads(1)
+        from repro_torch.launch.dryrun import init_fake_world
+        init_fake_world({world})
+        logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+        logging.getLogger("torch._logging").setLevel(logging.ERROR)
+    """) + textwrap.dedent(body)
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=timeout)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _sds(t):
+    """(shape, dtype name) of a meta tensor or a ShapeDtypeStruct."""
+    if isinstance(t, torch.Tensor):
+        return tuple(t.shape), str(t.dtype).split(".")[-1]
+    return tuple(t.shape), str(jnp.dtype(t.dtype))
+
+
+# -- shape stand-ins ---------------------------------------------------------
+
+@pytest.mark.parametrize("arch,shape", CELLS)
+def test_input_and_cache_specs_equal_reference(arch, shape):
+    cfg, r_cfg = configs.get_config(arch), r_configs.get_config(arch)
+    got = input_specs(cfg, SHAPES[shape])
+    want = r_input_specs(r_cfg, R_SHAPES[shape])
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].device.type == "meta"
+        assert _sds(got[k]) == _sds(want[k]), k
+    if not SHAPES[shape].is_decode:
+        return
+    got = flatten_with_paths(cache_specs(cfg, SHAPES[shape]))
+    want = jax.tree_util.tree_flatten_with_path(
+        r_cache_specs(r_cfg, R_SHAPES[shape]))[0]
+    want = {"|".join(p.key for p in path): leaf for path, leaf in want}
+    assert [k for k, _ in got] == sorted(want)
+    for k, leaf in got:
+        if k == "pos":               # the port's position is a Python int
+            assert leaf == 0 and _sds(want[k]) == ((), "int32")
+            continue
+        assert leaf.device.type == "meta" and _sds(leaf) == _sds(want[k]), k
+
+
+def test_eval_shape_of_a_7b_init_draws_and_allocates_nothing():
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    cfg = configs.get_config("qwen2-7b")
+    before, t0 = rss(), time.perf_counter()
+    state = eval_shape(init_train_state, cfg,
+                       torch.Generator().manual_seed(0), "cpu")
+    wall = time.perf_counter() - t0
+    n = count_params(state.params)
+    assert n > 7e9 and wall < 60
+    assert rss() - before < 2**30          # 3 x 30 GB of float32 otherwise
+    assert {t.device.type for t in leaves(state)} == {"meta"}
+    r_params = jax.eval_shape(r_build(r_configs.get_config("qwen2-7b")).init,
+                              jax.random.PRNGKey(0))
+    assert n == r_analysis.count_params(r_params)
+
+
+# -- parameter bytes per rank and model FLOPs --------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(arch: str):
+    return dryrun._param_shapes(configs.get_config(arch))
+
+
+@functools.lru_cache(maxsize=None)
+def _production_world(multi_pod: bool) -> dict:
+    """{arch: this rank's parameter bytes} as the dry-run places each
+    full-size model (its shapes made here) on a production mesh."""
+    shapes = {a: [[p, list(t.shape), str(t.dtype).split(".")[-1]]
+                  for p, t in flatten_with_paths(_param_shapes(a))]
+              for a in ARCHS}
+    return _in_world(512 if multi_pod else 256, f"""
+        from repro_torch.configs import get_config
+        from repro_torch.distributed import param_shardings
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.pytree import SEP
+        mesh = make_production_mesh(multi_pod={multi_pod},
+                                    torch_device="cpu")
+        out = {{}}
+        for arch, flat in {shapes!r}.items():
+            params = {{}}
+            for path, shape, dtype in flat:
+                node = params
+                *keys, last = path.split(SEP)
+                for k in keys:
+                    node = node.setdefault(k, {{}})
+                node[last] = torch.empty(shape, dtype=getattr(torch, dtype),
+                                         device="meta")
+            cfg = get_config(arch)
+            out[arch] = dryrun._local_bytes(dryrun._placed(
+                params, param_shardings(mesh, cfg, params)))
+        print(json.dumps(out))
+    """)
+
+
+def _reference_bytes_per_rank(arch, sizes):
+    """The reference's per-device parameter bytes: ``eval_shape`` of its
+    init, each leaf's fitted spec's local shape (as
+    ``test_torch_sharding._local_shapes_implied`` reads it)."""
+    r_cfg = r_configs.get_config(arch)
+    shapes = jax.eval_shape(r_build(r_cfg).init, jax.random.PRNGKey(0))
+
+    class _Mesh:
+        shape = sizes
+    total = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        keys = tuple(p.key for p in path)
+        spec = r_sharding.fit_spec(r_sharding.param_spec(
+            keys, leaf, r_cfg, sizes["model"]), leaf.shape, _Mesh)
+        local = list(leaf.shape)
+        for i, entry in enumerate(tuple(spec)):
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                if a is not None:
+                    local[i] //= sizes[a]
+        total += int(np.prod(local)) * jnp.dtype(leaf.dtype).itemsize
+    return r_analysis.count_params(shapes), total
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_per_rank_equal_reference(arch, multi_pod):
+    sizes = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    n = count_params(_param_shapes(arch))
+    nbytes = _production_world(multi_pod)[arch]
+    assert (n, nbytes) == _reference_bytes_per_rank(arch, sizes)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_flops_of_every_cell_equal_reference(arch):
+    cfg, r_cfg = configs.get_config(arch), r_configs.get_config(arch)
+    params = _param_shapes(arch)
+    r_params = jax.eval_shape(r_build(r_cfg).init, jax.random.PRNGKey(0))
+    for a, shape in CELLS:
+        if a == arch:
+            assert model_flops(cfg, SHAPES[shape], params) == \
+                r_analysis.model_flops(r_cfg, R_SHAPES[shape], r_params)
+
+
+@pytest.mark.parametrize("key", sorted(configs.ISING_SHAPES))
+def test_ising_model_flops_equal_reference(key):
+    spec = configs.ISING_SHAPES[key]
+    n, p, r = spec["n_spins"], spec["problems"], spec["runs"]
+    dev = DeviceModel(n_spins=n, compute_dtype="bfloat16")
+    r_dev = RDeviceModel(n_spins=n, compute_dtype="bfloat16")
+    # the reference's dry-run: 2.0 * n * n * R * P_ * dev.n_steps
+    assert dryrun._ising_model_flops(n, p, r, dev) == \
+        2.0 * n * n * r * p * r_dev.n_steps
+
+
+# -- the per-rank count is exact ---------------------------------------------
+
+def _qwen3_batch(cfg, b, s):
+    g = torch.Generator().manual_seed(1)
+    return {k: torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                             dtype=torch.int32) for k in ("tokens", "labels")}
+
+
+def test_count_on_the_host_mesh_equals_the_real_step():
+    cfg = configs.get_config("qwen3-0.6b").reduced()
+    b, s = 4, 32
+    traced, _, _ = dryrun._lower(cfg, ShapeConfig("t", s, b, "train"),
+                                 make_host_mesh("cpu"))
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = _qwen3_batch(cfg, b, s)
+    real = analyze(make_train_step(cfg), state, batch)
+    assert traced.cost.flops == real.flops > 0
+    assert traced.cost.bytes == real.bytes > 0
+    assert traced.cost.peak_bytes == real.peak_bytes > 0
+    assert traced.cost.collectives == real.collectives
+    assert traced.argument_bytes == sum(
+        t.numel() * t.element_size() for t in leaves((state, batch)))
+
+
+def test_megatron_pair_counts_its_local_flops_and_all_reduce():
+    t, d, f = 16 * 64, 256, 1024
+    got = _in_world(256, f"""
+        from torch.distributed.tensor import Replicate, Shard
+        from repro_torch.launch.dryrun import _placed
+        from repro_torch.distributed.sharding import NamedSharding
+        from repro_torch.launch.mesh import activate_mesh, make_production_mesh
+        from repro_torch.roofline import analyze
+        mesh = make_production_mesh(torch_device="cpu")
+        meta = lambda *s: torch.empty(s, device="meta")
+        x, w1, w2 = _placed(
+            [meta({t}, {d}), meta({d}, {f}), meta({f}, {d})],
+            [NamedSharding(mesh, s) for s in
+             (("data", None), (None, "model"), ("model", None))])
+
+        def pair(x, w1, w2):
+            y = (x @ w1) @ w2
+            return y.redistribute(mesh.device_mesh, [Shard(0), Replicate()])
+        with activate_mesh(mesh):
+            cost = analyze(pair, x, w1, w2)
+        print(json.dumps({{"flops": cost.flops,
+                           "coll": cost.collectives}}))
+    """)
+    t_l, f_l = t // 16, f // 16
+    assert got["flops"] == 2 * (2 * t_l * d * f_l)
+    assert got["coll"] == {"all-reduce": t_l * d * 4, "all-gather": 0,
+                           "reduce-scatter": 0, "all-to-all": 0,
+                           "collective-permute": 0}
+
+
+# -- the models on a fake world of 4 ranks ----------------------------------
+
+#: (arch, kinds): one reduced cell of each family in the kinds it has
+FAMILY_CELLS = (("qwen3-0.6b", ("train", "prefill", "decode")),
+                ("olmoe-1b-7b", ("train", "prefill", "decode")),
+                ("llava-next-mistral-7b", ("train", "prefill", "decode")),
+                ("hubert-xlarge", ("train", "prefill")),
+                ("zamba2-7b", ("train", "prefill", "decode")),
+                ("rwkv6-3b", ("train", "prefill", "decode")))
+
+
+@functools.lru_cache(maxsize=None)
+def _world_of_4() -> dict:
+    """One fake world of 4 ranks for every check that needs one (they
+    share DTensor's sharding-propagation cache): the families on (2, 2),
+    the forward with and without the constraints, the Ising layouts, and
+    the train step's count on (4, 1)."""
+    return _in_world(4, f"""
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.core import DeviceModel
+        from repro_torch.distributed import param_shardings, remesh
+        from repro_torch.distributed.sharding import NamedSharding
+        from repro_torch.launch.dryrun import (_lower, _lower_ising,
+                                               _param_shapes, _placed)
+        from repro_torch.launch.mesh import activate_mesh, make_host_mesh
+        from repro_torch.models import build, input_specs, transformer
+        mesh = remesh(list(range(4)), 2, torch_device="cpu")
+        out = {{"mesh": list(mesh.sizes)}}
+
+        # the reference's constraints: the forward without and with them
+        cfg = get_config("qwen3-0.6b").reduced()
+        params = _param_shapes(cfg)
+        params = _placed(params, param_shardings(mesh, cfg, params))
+        toks = _placed(input_specs(cfg, ShapeConfig("t", 16, 4, "prefill")),
+                       {{"tokens": NamedSharding(mesh, ("data", None))}})
+        fwd = build(cfg).forward
+        repaired = transformer.shard
+        transformer.shard = lambda x, *axes: x
+        try:
+            with activate_mesh(mesh):
+                fwd(params, toks)
+            out["before"] = "ran"
+        except Exception as e:
+            out["before"] = type(e).__name__
+        seen = []
+
+        def layout(t):
+            return [p.dim if p.is_shard() else
+                    "R" if p.is_replicate() else str(p) for p in t.placements]
+
+        def spy(x, *axes):
+            y = repaired(x, *axes)
+            if len(axes) == 3:
+                seen.append(layout(y))
+            return y
+        transformer.shard = spy
+        with activate_mesh(mesh):
+            h = fwd(params, toks)
+        transformer.shard = repaired
+        out["after"] = layout(h)
+        out["boundaries"] = seen
+
+        for arch, kinds in {FAMILY_CELLS!r}:
+            cfg = get_config(arch).reduced()
+            for kind in kinds:
+                traced, _, _ = _lower(cfg, ShapeConfig("t", 16, 4, kind),
+                                      mesh)
+                out[arch + "/" + kind] = [traced.cost.flops,
+                                          sum(traced.cost.collectives
+                                              .values())]
+
+        dev = DeviceModel(n_spins=64, anneal_sweeps=0.0625)
+        out["steps"] = dev.n_steps
+        for layout in ("runs", "spins"):
+            traced, _ = _lower_ising(64, 4, 8, dev, mesh, layout)
+            out[layout] = [traced.cost.flops,
+                           sum(traced.cost.collectives.values())]
+
+        cfg = get_config("qwen3-0.6b").reduced()
+        data = remesh(list(range(4)), 1, torch_device="cpu")
+        world, _, _ = _lower(cfg, ShapeConfig("t", 16, 8, "train"), data)
+        host, _, _ = _lower(cfg, ShapeConfig("t", 16, 2, "train"),
+                            make_host_mesh("cpu"))
+        out["data_mesh"] = list(data.sizes)
+        out["data_world"] = [world.cost.flops,
+                             world.cost.collectives["all-reduce"]]
+        out["data_host"] = host.cost.flops
+        print(json.dumps(out))
+    """)
+
+
+def test_sharding_constraints_repair_the_forward_on_a_2x2_world():
+    """Without the reference's constraints the vocab-sharded embedding's
+    partial rows reach the first norm, which DTensor cannot reduce; with
+    them the hidden states are batch-sharded at every block boundary."""
+    got = _world_of_4()
+    assert got["mesh"] == [2, 2]
+    assert got["before"] != "ran"
+    # the embedding's, the stream's input (the reference's
+    # transformer.py:205) and each of the 2 blocks' after attention and
+    # after the MLP (:182, :184)
+    assert len(got["boundaries"]) == 6
+    assert all(p == [0, "R"] for p in got["boundaries"])
+    assert got["after"] == [0, "R"]
+
+
+@pytest.mark.parametrize("arch,kinds", FAMILY_CELLS)
+def test_every_family_traces_on_a_2x2_world(arch, kinds):
+    got = _world_of_4()
+    for kind in kinds:
+        flops, coll = got[f"{arch}/{kind}"]
+        assert flops > 0 and coll > 0, (arch, kind)
+
+
+def test_ising_layouts_runs_local_and_spins_exchanging():
+    got = _world_of_4()
+    assert got["steps"] == 32
+    assert got["runs"][1] == 0 and got["runs"][0] > 0
+    assert got["spins"][1] > 0 and got["spins"][0] > 0
+
+
+def test_count_per_rank_on_a_4x1_world_is_the_count_of_its_batch():
+    got = _world_of_4()
+    assert got["data_mesh"] == [4, 1]
+    flops, all_reduce = got["data_world"]
+    assert flops == got["data_host"] > 0
+    assert all_reduce > 0                        # the gradients' reduction
+
+
+# -- a gloo world: MoE's F slices and the dense model across real ranks -------
+
+_GLOO = """
+import json, sys
+import torch
+import torch.distributed as dist
+rank, world, port = map(int, sys.argv[1:4])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                        rank=rank, world_size=world)
+from torch.distributed.tensor import DTensor
+from repro_torch.distributed import remesh
+from repro_torch.distributed.sharding import NamedSharding
+from repro_torch.launch.mesh import activate_mesh, virtual_mesh
+from repro_torch.models import moe
+
+full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+mesh = remesh(list(range(world)), world, torch_device="cpu")
+gen = torch.Generator().manual_seed(0)
+p = moe.init_moe(gen, 32, 64, 8)
+x = torch.randn((2, 16, 32), generator=gen)
+cot = torch.randn((2, 16, 32), generator=gen)
+specs = {"router": (), "wi": (None, None, "model"),
+         "wg": (None, None, "model"), "wo": (None, "model", None)}
+X = ("data", None, None)
+
+
+def run(m, place):
+    seen = []
+    route = moe.route
+
+    def spy(*a, **k):
+        seen.append(route(*a, **k))
+        return seen[-1]
+    moe.route = spy
+    ins = {k: place(v, specs[k]).requires_grad_() for k, v in p.items()}
+    xi = place(x, X).requires_grad_()
+    with activate_mesh(m):
+        out = moe.apply_moe(ins, xi, top_k=2)
+        loss = (out * place(cot, X)).sum()
+        grads = torch.autograd.grad(full(loss) if isinstance(loss, DTensor)
+                                    else loss, [xi, *ins.values()])
+    moe.route = route
+    return full(out).detach(), [full(g) for g in grads], seen[0]
+
+
+ref = run(virtual_mesh((1, world), ("data", "model"), "cpu"),
+          lambda t, s: t.clone())
+got = run(mesh, lambda t, s: NamedSharding(mesh, s).place(t.clone()))
+res = {"mesh": list(mesh.sizes),
+       "bitwise": bool(torch.equal(got[0], ref[0])),
+       "max_abs": float((got[0] - ref[0]).abs().max()),
+       "close": bool(torch.allclose(got[0], ref[0], rtol=1e-4, atol=1e-5)),
+       "grads_close": [bool(torch.allclose(a, b, rtol=1e-4, atol=1e-5))
+                       for a, b in zip(got[1], ref[1])],
+       "routing_bitwise": all(torch.equal(got[2][k], ref[2][k])
+                              for k in ref[2])}
+
+
+# reduced models on a mesh of processes against one process: the
+# constraints, per-rank attention, recurrences, conv and vocab-parallel
+# CE, gradients partial over the data axis; then decode steps on a
+# sequence-sharded cache
+def models_on(m):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import cache_shardings, param_shardings
+    from repro_torch.distributed.sharding import batch_spec, place_tree
+    from repro_torch.models import build
+    from repro_torch.pytree import leaves, unflatten
+    out = {}
+    for arch in ("qwen3-0.6b", "hubert-xlarge", "zamba2-7b", "rwkv6-3b"):
+        cfg = get_config(arch).reduced()
+        model = build(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        g = torch.Generator().manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+                 for k in ("tokens", "labels")}
+        if cfg.family == "encoder":
+            batch["embeds"] = torch.randn((2, 24, cfg.d_model), generator=g)
+        plain = [t.clone().requires_grad_() for t in leaves(params)]
+        loss = model.loss(unflatten(params, plain), batch)
+        grads = torch.autograd.grad(loss, plain, allow_unused=True,
+                                    materialize_grads=True)
+        placed = place_tree(params, param_shardings(m, cfg, params))
+        p_leaves = [t.detach().requires_grad_() for t in leaves(placed)]
+        pb = {k: NamedSharding(m, batch_spec(m, v.dim(), 2)).place(v)
+              for k, v in batch.items()}
+        with activate_mesh(m):
+            d_loss = model.loss(unflatten(params, p_leaves), pb)
+            d_grads = torch.autograd.grad(full(d_loss), p_leaves,
+                                          allow_unused=True,
+                                          materialize_grads=True)
+        # test_torch_train.py's gradient bound: rtol 1e-3, atol 1e-4 of
+        # the leaf's largest magnitude
+        row = {"loss": [float(loss), float(full(d_loss))],
+               "grads_close": all(bool(torch.allclose(
+                   full(a), b, rtol=1e-3,
+                   atol=1e-4 * float(b.abs().max()) + 1e-12))
+                   for a, b in zip(d_grads, grads))}
+        if cfg.has_decode:
+            cache = model.init_cache(2, 16, torch_device="cpu")
+            d_cache = place_tree(cache, cache_shardings(m, cfg, cache, 2))
+            row["decode_close"] = []
+            with torch.no_grad():
+                for t in range(3):
+                    tok = batch["tokens"][:, t]
+                    logits, cache = model.decode_step(params, cache, tok)
+                    with activate_mesh(m):
+                        d_logits, d_cache = model.decode_step(
+                            placed, d_cache, NamedSharding(
+                                m, batch_spec(m, 1, 2)).place(tok))
+                    row["decode_close"].append(bool(torch.allclose(
+                        full(d_logits), logits, rtol=1e-4, atol=1e-5)))
+        out[arch] = row
+    return out
+
+
+res["models"] = models_on(remesh(list(range(world)), 2, torch_device="cpu"))
+if rank == 0:
+    print(json.dumps(res))
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _gloo_world(world: int) -> dict:
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", _GLOO, str(r),
+                               str(world), str(port)], env=_env(),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_slices_across_gloo_ranks(tp):
+    got = _gloo_world(tp)
+    assert got["mesh"] == [1, tp]
+    assert got["routing_bitwise"]
+    if tp == 2:                       # two partials add alike either way
+        assert got["bitwise"], got["max_abs"]
+    assert got["close"], got["max_abs"]
+    assert all(got["grads_close"]), got["grads_close"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "hubert-xlarge",
+                                  "zamba2-7b", "rwkv6-3b"])
+def test_models_across_gloo_ranks(arch, world):
+    """(1, 2) and (2, 2) meshes of processes against one process."""
+    got = _gloo_world(world)["models"][arch]
+    plain, meshed = got["loss"]
+    assert np.isclose(meshed, plain, rtol=RTOL, atol=ATOL)
+    assert got["grads_close"]
+    if configs.get_config(arch).has_decode:
+        assert got["decode_close"] == [True] * 3

@@ -38,7 +38,7 @@ def test_import_loads_no_jax_and_no_reference_package():
             "repro_torch.launch.train, repro_torch.pytree, "
             "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
             "repro_torch.roofline, repro_torch.roofline.analysis, "
-            "repro_torch.roofline.op_cost; "
+            "repro_torch.roofline.op_cost, repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -214,6 +214,24 @@ def test_train_cli_raises_without_cuda_unless_asked_for_the_cpu(tmp_path):
                          cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout
+
+
+def test_dryrun_cli_raises_without_cuda_unless_asked_for_the_cpu(tmp_path):
+    env = _env(CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "qwen3-0.6b", "--shape", "decode_32k", "--out",
+           str(tmp_path / "out")]
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "torch_device='cpu'" in out.stderr
+    assert not (tmp_path / "out").exists()
+    out = subprocess.run(cmd + ["--torch-device", "cpu"], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "[dryrun] qwen3-0.6b x decode_32k x 16x16" in out.stdout
+    assert (tmp_path / "out" / "qwen3-0.6b__decode_32k__16x16.json").exists()
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

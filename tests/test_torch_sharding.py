@@ -447,12 +447,21 @@ def test_param_shardings_on_a_fake_world():
                 out["plain"] = "raised"
             p = build(get_config("olmoe-1b-7b").reduced()).init(
                 torch.Generator().manual_seed(0), "cpu")["blocks"]["ffn"]
+            layer = {k: v[0] for k, v in p.items()}
             try:
-                apply_moe({k: v[0] for k, v in p.items()},
-                          torch.ones(2, 4, 128), top_k=2)
-                out["moe"] = "no error"
-            except NotImplementedError:
-                out["moe"] = "raised"
+                apply_moe(layer, torch.ones(2, 4, 128), top_k=2)
+                out["moe_plain"] = "no error"
+            except TypeError:
+                out["moe_plain"] = "raised"
+            specs = {"router": (), "wi": (None, None, "model"),
+                     "wg": (None, None, "model"), "wo": (None, "model", None)}
+            y = apply_moe({k: NamedSharding(mesh, specs[k]).place(v)
+                           for k, v in layer.items()},
+                          NamedSharding(mesh, ("data", None, None)).place(
+                              torch.ones(2, 4, 128)), top_k=2)
+            out["moe"] = [p.dim if p.is_shard() else None
+                          for p in y.placements]
+            out["moe_local"] = list(y.to_local().shape)
         print(json.dumps(out))
     """)
     assert got["mesh"] == [2, 2] and got["names"] == ["data", "model"]
@@ -461,7 +470,11 @@ def test_param_shardings_on_a_fake_world():
             arch, {"data": 2, "model": 2}), arch
     assert got["shard"] == [0, 1]
     assert got["shard_local"] == [4, 3]
-    assert got["plain"] == "raised" and got["moe"] == "raised"
+    assert got["plain"] == "raised"
+    # MoE's F slices run across the ranks (one all-reduce over 'model');
+    # its per-rank code takes DTensors only
+    assert got["moe_plain"] == "raised"
+    assert got["moe"] == [0, None] and got["moe_local"] == [1, 4, 128]
 
 
 def test_remesh_over_six_ranks():
