@@ -179,8 +179,22 @@ exits nonzero:
                 op_cost.analyze of the real step exactly, the argument
                 bytes equal the state's and batch's bytes (printed beside
                 the allocation a copy of them takes), the temp estimate
-                printed beside the real step's peak allocation; the
-                phase's wall.
+                held within 0.8-1.25x of the real step's peak allocation
+                above its arguments (reset_peak_memory_stats before it);
+                the phase's wall.
+ 20. examples — the port's examples and paper scripts
+                (examples/torch/quickstart.py, maxcut_demo.py,
+                serve_lm.py, train_lm.py; scripts/torch/
+                calibrate_perturbation.py, baseline_vs_optimized.py), each
+                through main([..., "--torch-device", "cuda"]) in-process
+                at the reference's sizes (train_lm's ~100M path 20 steps,
+                not 300), the anneal kernel's launches counted around the
+                phase; gates: quickstart SR(perturbation) > SR(gd),
+                maxcut_demo's assert, serve_lm's tokens equal to the CPU's,
+                train_lm --small finite with its last-5 mean loss below
+                its first-5, calibrate's default row SR(perturbation) >
+                SR(gd), baseline_vs_optimized's mean SR improvement > 1;
+                each file's wall and the card's name and power limit.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -3410,11 +3424,129 @@ def phase_dryrun():
     check(row["argument_bytes_traced"] == row["argument_bytes_real"],
           f"dry-run argument bytes {row['argument_bytes_traced']} != "
           f"{row['argument_bytes_real']}")
+    check(0.8 <= row["temp_over_peak_allocated"] <= 1.25,
+          f"dry-run temp bytes {row['temp_bytes_traced']} are "
+          f"{row['temp_over_peak_allocated']:.3f}x the step's peak "
+          f"allocation above its arguments, {row['step_peak_allocated_above_args']}"
+          " (limits 0.8-1.25)")
+
+
+def entry_point(rel: str):
+    """The port's entry point at ``rel`` (a file outside ``src/``) as a
+    module; its ``main`` does not run on import."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "entry_" + os.path.splitext(os.path.basename(rel))[0],
+        os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(oracle_path):
+    """The port's examples and paper scripts (``examples/torch/``,
+    ``scripts/torch/``), each through ``main([..., "--torch-device",
+    "cuda"])`` in this process at the reference's sizes (train_lm's ~100M
+    path 20 steps, not 300), with the anneal kernel's launches counted
+    around the phase. Gates: the quickstart's mean SR with perturbation
+    above gd's; maxcut_demo's assert; serve_lm's tokens equal to the same
+    call's on the CPU; train_lm --small finite, its last-5 mean loss below
+    its first-5; calibrate's default row (drive 1.0, period 48, off 8)
+    perturbation SR above gd's; baseline_vs_optimized's mean SR
+    improvement above 1. Each file's wall."""
+    import numpy as np
+
+    from repro_torch.kernels import ising_anneal as ka
+    cuda = ["--torch-device", "cuda"]
+    env = os.environ.get("REPRO_TORCH_ORACLE_CACHE")
+    os.environ["REPRO_TORCH_ORACLE_CACHE"] = oracle_path
+    walls, rows = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    ka.reset_launches()
+    try:
+        quick = timed("quickstart", lambda: entry_point(
+            "examples/torch/quickstart.py").main(cuda))
+        rows["quickstart"] = {"sr_pert": float(quick["sr"].mean()),
+                              "sr_gd": float(quick["sr_gd"].mean()),
+                              "ratio": float(quick["ratio"])}
+        cuts = timed("maxcut_demo", lambda: entry_point(
+            "examples/torch/maxcut_demo.py").main(cuda))
+        rows["maxcut_demo"] = cuts
+        serve_mod = entry_point("examples/torch/serve_lm.py")
+        served = timed("serve_lm", lambda: serve_mod.main(cuda))
+        host = serve_mod.main(["--torch-device", "cpu"])
+        rows["serve_lm"] = {
+            "tokens": int(served["generated"].size),
+            "equal_to_cpu": bool(np.array_equal(served["generated"],
+                                                host["generated"])),
+            "tok_per_s": served["tok_per_s"]}
+        train_mod = entry_point("examples/torch/train_lm.py")
+        with tempfile.TemporaryDirectory() as tmp:
+            small = timed("train_lm --small", lambda: train_mod.main(
+                ["--small", "--ckpt-dir", os.path.join(tmp, "small")]
+                + cuda))
+            big = timed("train_lm 100M", lambda: train_mod.main(
+                ["--steps", "20", "--ckpt-dir", os.path.join(tmp, "100m")]
+                + cuda))
+        rows["train_lm"] = {
+            "small_steps": len(small), "small_first5": float(
+                np.mean(small[:5])), "small_last5": float(np.mean(small[-5:])),
+            "m100_steps": len(big), "m100_first": big[0], "m100_last": big[-1]}
+        free_cuda()
+        calib = timed("calibrate_perturbation", lambda: entry_point(
+            "scripts/torch/calibrate_perturbation.py").main(cuda))
+        rows["calibrate_perturbation"] = [
+            {"drive": r["drive"], "period": r["period"], "off": r["off"],
+             "sr_gd": float(r["sr_gd"].mean()),
+             "sr_pert": float(r["sr_pert"].mean())} for r in calib]
+        delta = timed("baseline_vs_optimized", lambda: entry_point(
+            "scripts/torch/baseline_vs_optimized.py").main(cuda))
+        rows["baseline_vs_optimized"] = {
+            "mean_ratio": delta["mean_ratio"],
+            "cells": [{"n": c["n"], "sr_gd": float(c["sr_gd"].mean()),
+                       "sr_pert": float(c["sr_pert"].mean())}
+                      for c in delta["cells"]]}
+    finally:
+        if env is None:
+            os.environ.pop("REPRO_TORCH_ORACLE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_ORACLE_CACHE"] = env
+    launches = dict(ka.launches)
+    emit({"phase": "examples", "rows": rows, "walls_s": walls,
+          "anneal_launches": launches, "card": nvidia_smi()})
+    q = rows["quickstart"]
+    check(q["sr_pert"] > q["sr_gd"], f"quickstart: perturbation SR "
+          f"{q['sr_pert']} not above gd's {q['sr_gd']}")
+    check(rows["serve_lm"]["equal_to_cpu"],
+          "serve_lm: the card's tokens differ from the CPU's")
+    check(all(map(math.isfinite, small + big)), "train_lm: a loss is not "
+          "finite")
+    t = rows["train_lm"]
+    check(t["small_last5"] < t["small_first5"], f"train_lm --small: last-5 "
+          f"mean {t['small_last5']} not below first-5 {t['small_first5']}")
+    (default,) = [r for r in rows["calibrate_perturbation"]
+                  if (r["drive"], r["period"], r["off"]) == (1.0, 48, 8)]
+    check(default["sr_pert"] > default["sr_gd"], f"calibrate: the default "
+          f"row's perturbation SR {default['sr_pert']} not above gd's "
+          f"{default['sr_gd']}")
+    check(rows["baseline_vs_optimized"]["mean_ratio"] > 1,
+          "baseline_vs_optimized: mean SR improvement "
+          f"{rows['baseline_vs_optimized']['mean_ratio']} not above 1")
+    check(sum(launches.values()) > 0, "examples: the anneal kernel was not "
+          "launched")
+    return launches
 
 
 PHASES = ("compare", "main", "scan", "timing", "sb_compare", "sb_main",
           "gset", "sb_timing", "search", "zoo", "physics", "serve",
-          "fabric", "lm", "lm_families", "mesh", "train", "dryrun")
+          "fabric", "lm", "lm_families", "mesh", "train", "dryrun",
+          "examples")
 
 
 def main(argv=None) -> int:
@@ -3464,6 +3596,7 @@ def main(argv=None) -> int:
             "mesh": phase_mesh,
             "train": phase_train,
             "dryrun": phase_dryrun,
+            "examples": lambda: phase_examples(oracle_path),
         }
         out = {name: run[name]() for name in PHASES if name in phases}
     emit({"phase": "end", "total_s": time.perf_counter() - START})
@@ -3475,6 +3608,7 @@ def main(argv=None) -> int:
     sb_err, sb_launches = out["sb_compare"], out["sb_main"]
     sb_timing = out["sb_timing"]
     fabric_launches = out["fabric"]
+    example_launches = out["examples"]
 
     kernels = []
     for j_dtype, row in timing.items():
@@ -3482,7 +3616,8 @@ def main(argv=None) -> int:
             "name": row["name"], "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ising_anneal.cu",
             "replaces": "src/repro/kernels/ising_anneal.py:59",
-            "launches": launches[row["name"]] + fabric_launches[row["name"]],
+            "launches": launches[row["name"]] + fabric_launches[row["name"]]
+            + example_launches[row["name"]],
             "max_abs_err": err[j_dtype], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

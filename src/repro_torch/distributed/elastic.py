@@ -20,7 +20,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .sharding import Mesh, virtual_mesh
+from .sharding import Mesh, mesh_of_processes, virtual_mesh
 
 log = logging.getLogger("repro_torch.elastic")
 
@@ -110,9 +110,5 @@ def remesh(available_devices: Sequence, model_parallel: int, pods: int = 1,
     mesh = virtual_mesh(shape, axes, torch_device)
     if not dist.is_initialized():
         return mesh
-    from torch.distributed.device_mesh import DeviceMesh
-    ranks = torch.as_tensor(
-        np.asarray(available_devices[:used], dtype=np.int64).reshape(shape))
-    return Mesh(axes, shape, mesh.torch_device,
-                DeviceMesh(mesh.torch_device.type, ranks,
-                           mesh_dim_names=axes))
+    return mesh_of_processes(axes, shape, mesh.torch_device,
+                             available_devices[:used])

@@ -26,15 +26,18 @@ kinds:
   in rank order. ``virtual_mesh`` and ``launch.mesh.make_host_mesh`` (the
   card's (1, 1)) build these.
 * a mesh of processes: ``device_mesh`` is a torch ``DeviceMesh`` over the
-  ranks of an initialised ``torch.distributed`` world, and tensors on it
-  are DTensors. ``launch.mesh.make_production_mesh`` and
-  ``distributed.elastic.remesh`` over a world build these.
+  ranks of an initialised ``torch.distributed`` world, with one dimension
+  per ``device_axes`` entry ('pod' and 'data' together are one), and
+  tensors on it are DTensors. ``mesh_of_processes`` builds these, for
+  ``launch.mesh.make_production_mesh`` and ``distributed.elastic.remesh``
+  over a world.
 
 ``activate_mesh(mesh)`` makes a mesh ambient (``ACTIVE_MESH``) for
 ``models.common``'s ``active_mesh`` / ``logical`` / ``shard``.
 
 ``NamedSharding`` pairs a mesh with a spec and names the torch placements
-(``Shard(i)`` / ``Replicate()`` per mesh axis) that a ``DeviceMesh`` takes.
+(``Shard(i)`` / ``Replicate()`` per ``DeviceMesh`` dimension) that a
+``DeviceMesh`` takes.
 The reference's ``shard_map`` shim is JAX-only; the port's counterpart is
 the virtual-slice sum in ``models.moe``.
 """
@@ -80,6 +83,50 @@ class Mesh:
         """{axis name: size}, in axis order (``jax.sharding.Mesh.shape``)."""
         return dict(zip(self.axis_names, self.sizes))
 
+    @property
+    def device_axes(self) -> tuple:
+        """The axes each dimension of ``device_mesh`` spans
+        (``device_axes``)."""
+        return device_axes(self.axis_names)
+
+
+#: the batch-like axes, in mesh order
+BATCH_AXES = ("pod", "data")
+
+
+def device_axes(axis_names) -> tuple:
+    """The axes each dimension of a mesh of processes' ``DeviceMesh``
+    spans, major to minor: the batch-like axes present are one dimension,
+    every other axis is its own. The reference's partition treats 'pod' as
+    more data (a batch is split over ``('pod', 'data')`` and nothing is
+    split over one of them alone), so one dimension is the same layout;
+    and it keeps DTensor's planning on two dimensions, where on three it
+    searches a graph of layouts for every new pair of placements."""
+    batch = tuple(a for a in axis_names if a in BATCH_AXES)
+    out = []
+    for a in axis_names:
+        if a not in BATCH_AXES:
+            out.append((a,))
+        elif a == batch[0]:
+            out.append(batch)
+    return tuple(out)
+
+
+def mesh_of_processes(axes, shape, torch_device, ranks) -> Mesh:
+    """A :class:`Mesh` of ``shape`` over the ranks ``ranks`` (in mesh order)
+    of an initialised ``torch.distributed`` world, with a ``DeviceMesh`` of
+    one dimension per ``device_axes`` entry (named by its axes joined with
+    '_')."""
+    from torch.distributed.device_mesh import DeviceMesh
+    axes, shape = tuple(axes), tuple(int(n) for n in shape)
+    size = dict(zip(axes, shape))
+    dims = device_axes(axes)
+    dev = resolve_device(torch_device)
+    grid = torch.as_tensor(np.asarray(ranks, dtype=np.int64).reshape(
+        [math.prod(size[a] for a in g) for g in dims]))
+    return Mesh(axes, shape, dev, DeviceMesh(
+        dev.type, grid, mesh_dim_names=tuple("_".join(g) for g in dims)))
+
 
 def virtual_mesh(shape, axes, torch_device: str | torch.device = "cuda"
                  ) -> Mesh:
@@ -121,7 +168,7 @@ def spec(*entries) -> tuple:
 
 
 def batch_axes(mesh) -> tuple:
-    return tuple(a for a in ("pod", "data") if a in mesh.shape)
+    return tuple(a for a in BATCH_AXES if a in mesh.shape)
 
 
 def data_size(mesh) -> int:
@@ -237,18 +284,26 @@ def cache_spec(path: tuple, shape: tuple, mesh, cfg: ModelConfig,
     return spec(*([None] * nd))
 
 
-def placements(s: tuple, axis_names: tuple) -> list:
-    """The torch placements of spec ``s`` on a mesh with ``axis_names``:
-    ``Shard(i)`` on each mesh axis that dimension i's entry names,
-    ``Replicate()`` on the others."""
+def placements(s: tuple, axes: tuple) -> list:
+    """The torch placements of spec ``s`` on a mesh of processes whose
+    ``DeviceMesh`` dimensions span ``axes`` (``Mesh.device_axes``):
+    ``Shard(i)`` on each dimension whose axes dimension i's entry names,
+    ``Replicate()`` on the others. A spec that names some but not all of
+    a dimension's axes has no placement."""
     from torch.distributed.tensor import Replicate, Shard
     dim_of = {}
     for i, entry in enumerate(s):
         for a in (entry if isinstance(entry, tuple) else (entry,)):
             if a is not None:
                 dim_of[a] = i
-    return [Shard(dim_of[a]) if a in dim_of else Replicate()
-            for a in axis_names]
+    out = []
+    for g in axes:
+        dims = {dim_of.get(a) for a in g}
+        if len(dims) > 1:
+            raise ValueError(f"spec {s} splits the mesh dimension over {g}")
+        d = dims.pop()
+        out.append(Replicate() if d is None else Shard(d))
+    return out
 
 
 class NamedSharding:
@@ -267,7 +322,7 @@ class NamedSharding:
 
     @property
     def placements(self) -> list:
-        return placements(self.spec, tuple(self.mesh.axis_names))
+        return placements(self.spec, self.mesh.device_axes)
 
     def place(self, t):
         """``t`` (a whole tensor) laid out on the mesh: copied to its device

@@ -11,8 +11,8 @@ import math
 
 import torch
 
-from ..device import resolve_device
-from ..distributed.sharding import Mesh, activate_mesh, virtual_mesh
+from ..distributed.sharding import (Mesh, activate_mesh, mesh_of_processes,
+                                    virtual_mesh)
 
 __all__ = ["Mesh", "PRODUCTION_SHAPES", "activate_mesh", "make_host_mesh",
            "make_production_mesh", "virtual_mesh"]
@@ -36,7 +36,6 @@ def make_production_mesh(*, multi_pod: bool = False,
     be initialised (``torch.distributed.init_process_group``); raises
     otherwise, or if its size is not the mesh's."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
     need = math.prod(shape)
     if not dist.is_initialized():
@@ -45,6 +44,4 @@ def make_production_mesh(*, multi_pod: bool = False,
     if dist.get_world_size() != need:
         raise RuntimeError(f"make_production_mesh{shape} needs {need} ranks, "
                            f"the world has {dist.get_world_size()}")
-    dev = resolve_device(torch_device)
-    return Mesh(axes, shape, dev,
-                init_device_mesh(dev.type, shape, mesh_dim_names=axes))
+    return mesh_of_processes(axes, shape, torch_device, range(need))

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import spec
 from .common import (from_local, local_shard, logical, process_mesh, psum,
-                     shard_index)
+                     shard_axes, shard_index)
 
 NEG_INF = -1e30
 
@@ -200,11 +200,8 @@ def _decode_over_ranks(q, k_cache, v_cache, cache_len: int, scale, mesh):
     scores its own cache positions for its batch rows (every head), and
     the max, the sum and the output are all-reduced over the ranks that
     split the sequence."""
-    names = mesh.axis_names
-    s_axes = tuple(a for a, p in zip(names, k_cache.placements)
-                   if p.is_shard(1))
-    b_entry = spec(tuple(a for a, p in zip(names, k_cache.placements)
-                         if p.is_shard(0)))[0]
+    s_axes = shard_axes(k_cache, mesh, 1)
+    b_entry = spec(shard_axes(k_cache, mesh, 0))[0]
     layout = (b_entry, None, None, None)
     kl = k_cache.to_local()
     out = _decode(local_shard(q, mesh, layout, split=s_axes), kl,

@@ -18,14 +18,13 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import ACTIVE_MESH, placements
+from ..distributed.sharding import ACTIVE_MESH, BATCH_AXES, placements
 
 
 # --------------------------------------------------------------------------
 # Sharding helpers: logical axes resolved against the active mesh.
 # --------------------------------------------------------------------------
 
-BATCH_AXES = ("pod", "data")   # global-batch shards over all data-like axes
 MODEL_AXIS = "model"
 
 
@@ -86,7 +85,7 @@ def shard(x, *axes):
         raise TypeError("shard: on a mesh of processes x must be a DTensor, "
                         f"got {type(x).__name__}")
     dm = mesh.device_mesh
-    want = placements(logical(*axes), mesh.axis_names)
+    want = placements(logical(*axes), mesh.device_axes)
     y = x.redistribute(dm, want)
     if y.requires_grad:
         y.register_hook(lambda g: g.redistribute(dm, want))
@@ -118,11 +117,21 @@ def local_shard(t, mesh, s: tuple, *, split=True):
     if not isinstance(t, DTensor):
         raise TypeError("on a mesh of processes the per-rank code takes "
                         f"DTensors, got {type(t).__name__}")
-    want = placements(s, mesh.axis_names)
+    want = placements(s, mesh.device_axes)
     return t.redistribute(mesh.device_mesh, want).to_local(grad_placements=[
         Partial() if not p.is_shard() and (
-            split is True or (split and a in split)) else p
-        for a, p in zip(mesh.axis_names, want)])
+            split is True or (split and _spans(g, split))) else p
+        for g, p in zip(mesh.device_axes, want)])
+
+
+def _spans(g: tuple, axes) -> bool:
+    """Whether ``axes`` name every axis of the mesh dimension ``g`` (a
+    dimension is reduced or split whole, never over part of its axes)."""
+    hit = [a in axes for a in g]
+    if any(hit) and not all(hit):
+        raise ValueError(f"{tuple(axes)} names part of the mesh dimension "
+                         f"over {g}")
+    return all(hit)
 
 
 def psum(t, mesh, axes: tuple, op: str = "sum"):
@@ -131,7 +140,8 @@ def psum(t, mesh, axes: tuple, op: str = "sum"):
     from torch.distributed.tensor import DTensor, Partial, Replicate
     if not axes:
         return t
-    pl = [Partial(op) if a in axes else Replicate() for a in mesh.axis_names]
+    pl = [Partial(op) if _spans(g, axes) else Replicate()
+          for g in mesh.device_axes]
     return DTensor.from_local(t, mesh.device_mesh, pl, run_check=False
                               ).redistribute(mesh.device_mesh, [
                                   Replicate()] * len(pl)).to_local()
@@ -143,7 +153,7 @@ def from_local(t, mesh, s: tuple, shape):
     from torch.distributed.tensor import DTensor
     shape = tuple(shape)
     return DTensor.from_local(
-        t, mesh.device_mesh, placements(s, mesh.axis_names), run_check=False,
+        t, mesh.device_mesh, placements(s, mesh.device_axes), run_check=False,
         shape=shape, stride=tuple(math.prod(shape[i + 1:])
                                   for i in range(len(shape))))
 
@@ -151,11 +161,18 @@ def from_local(t, mesh, s: tuple, shape):
 def shard_index(t, mesh, dim: int) -> int:
     """This rank's place among the shards of the DTensor ``t``'s dimension
     ``dim`` (its mesh axes cut it major to minor)."""
-    i = 0
-    for a, p in zip(mesh.axis_names, t.placements):
+    i, dm = 0, mesh.device_mesh
+    for k, p in enumerate(t.placements):
         if p.is_shard(dim):
-            i = i * mesh.shape[a] + mesh.device_mesh.get_local_rank(a)
+            i = i * dm.size(k) + dm.get_local_rank(k)
     return i
+
+
+def shard_axes(t, mesh, dim: int) -> tuple:
+    """The mesh axes that split the DTensor ``t``'s dimension ``dim``,
+    major to minor."""
+    return tuple(a for g, p in zip(mesh.device_axes, t.placements)
+                 if p.is_shard(dim) for a in g)
 
 
 def heads_over_ranks(mesh, n_heads: int):
@@ -172,7 +189,7 @@ def local_heads(t, mesh, head_dim: int):
     of whole heads (``heads_over_ranks``), for a per-head recurrence."""
     n = t.shape[-1] // head_dim
     whole = t.redistribute(mesh.device_mesh, placements(
-        logical("batch", None, None), mesh.axis_names))
+        logical("batch", None, None), mesh.device_axes))
     ax = heads_over_ranks(mesh, n)
     return local_shard(whole.unflatten(-1, (n, head_dim)), mesh,
                        logical("batch", None, ax, None),

@@ -35,13 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from ..distributed.sharding import spec
+from ..distributed.sharding import batch_axes, spec
 from ..pytree import tree_map
 from .attention import decode_attention, flash_attention, write_position
-from .common import (BATCH_AXES, act_fn, apply_rope, dense_init, embed_init,
+from .common import (act_fn, apply_rope, dense_init, embed_init,
                      from_local, layer_norm, local_shard, logical,
                      process_mesh, psum, replicated, rms_norm, shard,
-                     shard_index)
+                     shard_axes, shard_index)
 from .moe import apply_moe, init_moe
 
 #: the families this module builds (zamba and rwkv_model build the others)
@@ -287,8 +287,7 @@ def _pos_conv_over_ranks(w, x, mesh):
     'model' (its spec) as XLA runs it: each rank convolves the input
     channels of its own groups (a group's input and output channels are
     the same slice) and the output stays channel-sharded."""
-    axes = tuple(a for a, p in zip(mesh.axis_names, w.placements)
-                 if p.is_shard(2))
+    axes = shard_axes(w, mesh, 2)
     wl = local_shard(w, mesh, spec(None, None, axes))
     d = x.shape[-1]
     n = d // wl.shape[2]                     # channel slices
@@ -316,6 +315,12 @@ def _positions(b: int, s: int, device):
                             .expand(b, s)), "batch", None)
 
 
+def apply_block(p, cfg: ModelConfig, x, positions):
+    """One block (the reference's ``apply_block``): the new residual
+    stream."""
+    return _block_collect(p, cfg, x, positions)[0]
+
+
 def _block_collect(p, cfg: ModelConfig, x, positions):
     """One block; returns the new residual stream and the block's (k, v)."""
     q, k, v = _qkv(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
@@ -339,7 +344,7 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,
         x = x + act_fn("gelu")(pos_conv(pc, x) + pc["b"]).to(x.dtype)
     x = shard(x, "batch", None, None)
     positions = _positions(*x.shape[:2], x.device)
-    block = remat(lambda p, x: _block_collect(p, cfg, x, positions)[0], cfg)
+    block = remat(lambda p, x: apply_block(p, cfg, x, positions), cfg)
     for p in layers(params["blocks"]):
         x = block(p, x)
     return _apply_norm(cfg, params["final_norm"], x)
@@ -407,9 +412,8 @@ def _ce_over_ranks(hidden, labels, w, cfg: ModelConfig, mesh):
     logit are all-reduced over the vocab slices, and the loss's two sums
     over the batch. Returns the loss as a replicated DTensor."""
     from torch.distributed.tensor import DTensor, Replicate
-    names = mesh.axis_names
-    v_axes = tuple(a for a, p in zip(names, w.placements) if p.is_shard(1))
-    b_axes = tuple(a for a in BATCH_AXES if a in names)
+    v_axes = shard_axes(w, mesh, 1)
+    b_axes = batch_axes(mesh)
     hl = local_shard(hidden, mesh, logical("batch", None, None),
                      split=v_axes)
     wl = local_shard(w, mesh, spec(None, v_axes), split=b_axes)
@@ -447,7 +451,8 @@ def _ce_over_ranks(hidden, labels, w, cfg: ModelConfig, mesh):
     loss = psum(tot, mesh, b_axes) / torch.clamp(psum(cnt, mesh, b_axes),
                                                  min=1.0)
     return DTensor.from_local(loss, mesh.device_mesh,
-                              [Replicate()] * len(names), run_check=False)
+                              [Replicate()] * mesh.device_mesh.ndim,
+                              run_check=False)
 
 
 def lm_loss(params, cfg: ModelConfig, batch):

@@ -20,12 +20,15 @@ eager has no HLO, so the port counts what actually executes).
   collectives: per-kind operand bytes of the ``c10d`` / functional
          collectives in the same dispatch record (the ops
          ``torch.distributed.tensor.debug.CommDebugMode`` names).
-  peak_bytes: an estimate of the most bytes the run's own results held at
-         once, the counterpart of XLA's ``temp_size_in_bytes``: each
-         counted op's results are live from the op until their tensors
-         are freed (a ``weakref`` finalizer), a view keeps its base live,
-         and the arguments ``fn`` was given are not included. The step's
-         own outputs (a train step's new state) are.
+  peak_bytes: the most bytes the run's own allocations held at once, the
+         counterpart of XLA's ``temp_size_in_bytes``, counted by storage:
+         a storage counts once, from the op that allocated it (a result
+         that is not a view and shares no input's storage) until the
+         storage itself is freed (a ``weakref`` finalizer on it), however
+         many tensors alias it and whichever of them lives longest. The
+         arguments ``fn`` was given are not included; the step's own
+         outputs (a train step's new state) are. This follows the
+         allocator's count of the run's bytes.
 
 Counts are per process, which on DTensors is per rank: the recorder
 declines the ops whose arguments are DTensors, so it counts the local
@@ -104,10 +107,6 @@ def _collective_operand(func, args):
     return args[0]
 
 
-def _keep(*_):
-    """A finalizer's no-op: its arguments stay alive until it runs."""
-
-
 def _subclass_types():
     """(DTensor, FakeTensor); DTensor is None where torch lacks it."""
     try:
@@ -144,6 +143,7 @@ class _Record(TorchDispatchMode):
         super().__init__()
         self.cost = cost
         self.live = 0
+        self.counted = weakref.WeakSet()      # storages counted so far
         self.inner = 0
         self.dtensor, self.fake = _subclass_types()
 
@@ -151,17 +151,20 @@ class _Record(TorchDispatchMode):
         self.live -= n
 
     def _hold(self, func, ins, outs) -> None:
-        """``outs`` live until freed; a view's keep its base."""
+        """The storages ``func`` allocated for ``outs`` live until freed.
+        A view's, an in-place result's and an ``out=`` result's storage is
+        an input's, counted where it was allocated (or an argument's)."""
         if _is_view(func):
-            for t in outs:
-                weakref.finalize(t, _keep, ins[0] if ins else None)
             return
+        theirs = {id(t.untyped_storage()) for t in ins}
         for t in outs:
-            if any(t is a for a in ins):      # written in place
+            st = t.untyped_storage()
+            if id(st) in theirs or st in self.counted:
                 continue
-            n = t.numel() * t.element_size()
+            n = st.nbytes()
+            self.counted.add(st)
             self.live += n
-            weakref.finalize(t, self._free, n)
+            weakref.finalize(st, self._free, n)
         self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

@@ -13,13 +13,15 @@ Exactness, fixed before the port was written:
     against ``op_cost.analyze`` of the real step; per-rank FLOPs on a
     (4, 1) world against the (1, 1) count at a quarter of the batch; a
     megatron pair's local FLOPs and its all-reduce's bytes on (16, 16);
+    reduced zamba2's and rwkv6's per-rank counts on (2, 2, 2) against
+    (4, 2);
   * bitwise: MoE's F slices across 2 gloo ranks against the virtual
     (1, 2) mesh, and the routing at tp = 2 and 4;
   * ``tests/test_torch_moe.py``'s rtol=1e-4, atol=1e-5: the slices across
     4 gloo ranks, every gradient of the MoE layer, and the losses and
     three decode steps' logits of reduced qwen3-0.6b, hubert-xlarge,
-    zamba2-7b and rwkv6-3b on (1, 2) and (2, 2) gloo meshes against one
-    process;
+    zamba2-7b and rwkv6-3b on (1, 2), (2, 2) and (2, 1, 2) gloo meshes
+    against one process;
     their gradients at ``tests/test_torch_train.py``'s rtol 1e-3, atol
     1e-4 of each leaf's largest magnitude.
 
@@ -419,13 +421,57 @@ def test_count_per_rank_on_a_4x1_world_is_the_count_of_its_batch():
     assert all_reduce > 0                        # the gradients' reduction
 
 
+def test_recurrent_families_count_alike_over_pod_and_data():
+    """Reduced zamba2 / rwkv6 train steps on a fake world of 8 ranks:
+    (2, 2, 2) ("pod", "data", "model") splits the batch over 'pod' and
+    'data' as (4, 2) splits it over 'data', so each rank's count (FLOPs,
+    bytes, peak, every collective kind, argument bytes) is the same, and
+    DTensor plans no more layouts (on a three-dimensional DeviceMesh it
+    planned thousands more, each a graph search, 30-50 times the wall)."""
+    got = _in_world(8, """
+        from torch.distributed.tensor import _redistribute
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.distributed import remesh
+        from repro_torch.launch.dryrun import _lower
+        plan = _redistribute._gen_transform_infos_non_cached
+        plans = [0]
+
+        def counted(*a, **k):
+            plans[0] += 1
+            return plan(*a, **k)
+        _redistribute._gen_transform_infos_non_cached = counted
+        out = {}
+        for pods in (1, 2):
+            mesh = remesh(list(range(8)), 2, pods=pods, torch_device="cpu")
+            for arch in ("zamba2-7b", "rwkv6-3b"):
+                _redistribute._gen_transform_infos.cache_clear()
+                plans[0] = 0
+                traced, _, _ = _lower(get_config(arch).reduced(),
+                                      ShapeConfig("t", 16, 8, "train"), mesh)
+                c = traced.cost
+                out[f"{arch}/{pods}"] = {
+                    "mesh": list(mesh.sizes), "flops": c.flops,
+                    "bytes": c.bytes, "peak": c.peak_bytes,
+                    "collectives": c.collectives,
+                    "args": traced.argument_bytes, "plans": plans[0]}
+        print(json.dumps(out))
+    """)
+    for arch in ("zamba2-7b", "rwkv6-3b"):
+        two, three = got[f"{arch}/1"], got[f"{arch}/2"]
+        assert two.pop("mesh") == [4, 2] and three.pop("mesh") == [2, 2, 2]
+        assert two["flops"] > 0 and two["collectives"]["all-reduce"] > 0
+        assert three.pop("plans") <= two.pop("plans"), arch
+        assert three == two, arch
+
+
 # -- a gloo world: MoE's F slices and the dense model across real ranks -------
 
 _GLOO = """
 import json, sys
 import torch
 import torch.distributed as dist
-rank, world, port = map(int, sys.argv[1:4])
+rank, world, port, pods = map(int, sys.argv[1:5])
 torch.set_num_threads(1)
 dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                         rank=rank, world_size=world)
@@ -536,7 +582,10 @@ def models_on(m):
     return out
 
 
-res["models"] = models_on(remesh(list(range(world)), 2, torch_device="cpu"))
+res["models"] = models_on(remesh(list(range(world)), 2, pods=pods,
+                                  torch_device="cpu"))
+res["models_mesh"] = list(remesh(list(range(world)), 2, pods=pods,
+                                 torch_device="cpu").sizes)
 if rank == 0:
     print(json.dumps(res))
 dist.destroy_process_group()
@@ -550,10 +599,10 @@ def _free_port() -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _gloo_world(world: int) -> dict:
+def _gloo_world(world: int, pods: int = 1) -> dict:
     port = _free_port()
     procs = [subprocess.Popen([sys.executable, "-c", _GLOO, str(r),
-                               str(world), str(port)], env=_env(),
+                               str(world), str(port), str(pods)], env=_env(),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for r in range(world)]
     outs = [p.communicate(timeout=240) for p in procs]
@@ -579,6 +628,21 @@ def test_moe_slices_across_gloo_ranks(tp):
 def test_models_across_gloo_ranks(arch, world):
     """(1, 2) and (2, 2) meshes of processes against one process."""
     got = _gloo_world(world)["models"][arch]
+    plain, meshed = got["loss"]
+    assert np.isclose(meshed, plain, rtol=RTOL, atol=ATOL)
+    assert got["grads_close"]
+    if configs.get_config(arch).has_decode:
+        assert got["decode_close"] == [True] * 3
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "hubert-xlarge", "zamba2-7b",
+                                  "rwkv6-3b"])
+def test_models_across_gloo_ranks_on_three_axes(arch):
+    """A (2, 1, 2) ("pod", "data", "model") mesh of 4 processes against one
+    process, within the two-axis worlds' bounds and their timeout."""
+    got = _gloo_world(4, 2)
+    assert got["models_mesh"] == [2, 1, 2]
+    got = got["models"][arch]
     plain, meshed = got["loss"]
     assert np.isclose(meshed, plain, rtol=RTOL, atol=ATOL)
     assert got["grads_close"]

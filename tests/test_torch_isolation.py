@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX and no ``repro`` import, and no quiet CPU
-fallback when the caller asked for CUDA."""
+"""The port stands alone: no JAX and no ``repro`` import (in the package,
+``chip_smoke.py``, ``examples/torch/`` and ``scripts/torch/``), and no quiet
+CPU fallback when the caller asked for CUDA."""
 import os
 import re
 import subprocess
@@ -12,6 +13,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+#: the port's entry points outside src/: examples and paper scripts
+ENTRY_POINTS = sorted([*(ROOT / "examples" / "torch").glob("*.py"),
+                       *(ROOT / "scripts" / "torch").glob("*.py")])
 FORBIDDEN = re.compile(
     r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s+import\b))",
     re.MULTILINE)
@@ -47,9 +51,26 @@ def test_import_loads_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_entry_points_load_no_jax_and_no_reference_package():
+    """Loading every file of examples/torch/ and scripts/torch/ (their
+    imports run, their main does not) brings in neither JAX nor repro."""
+    assert len(ENTRY_POINTS) == 6
+    code = ("import importlib.util, sys\n"
+            f"for i, path in enumerate({[str(p) for p in ENTRY_POINTS]!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'e{i}', path)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
-                                       ROOT / "chip_smoke.py"]))
+                                       ROOT / "chip_smoke.py",
+                                       *ENTRY_POINTS]))
 def test_sources_import_neither_jax_nor_repro(path):
     text = (ROOT / path).read_text()
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)

@@ -625,3 +625,21 @@ def test_lm_params_from_arrays_checks_family_shapes(arch, other, match):
     # zamba: one shared block, blocks over every layer (13 x 6 + 3 at 81)
     if arch == "zamba2-7b":
         assert arrays["shared"]["attn"]["wq"].ndim == 3
+
+
+def test_apply_block_matches_reference():
+    """One reduced dense block, the reference's public ``apply_block``
+    against the port's, on the same weights and a random stream."""
+    from repro.models import transformer as r_transformer
+    cfg, _, r_params, _, params, _ = _models("qwen3-0.6b")
+    r_p = jax.tree.map(lambda a: a[0], r_params["blocks"])
+    p = transformer.layers(params["blocks"])[0]
+    x = np.random.default_rng(3).normal(
+        size=(2, 12, cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(12, dtype=np.int32), (2, 1))
+    want = r_transformer.apply_block(r_p, _r_cfg(cfg), jnp.asarray(x),
+                                     jnp.asarray(pos))
+    got = transformer.apply_block(p, cfg, torch.as_tensor(x),
+                                  torch.as_tensor(pos))
+    assert got.shape == want.shape
+    _close(got.numpy(), want)

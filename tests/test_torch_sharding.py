@@ -379,8 +379,12 @@ def test_production_mesh_in_a_fake_world(multi_pod, world, monkeypatch):
     """)
     shape = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else ("data", "model")
-    assert tuple(got["shape"]) == tuple(got["dm"]) == shape
-    assert tuple(got["names"]) == tuple(got["dm_names"]) == names
+    assert tuple(got["shape"]) == shape
+    assert tuple(got["names"]) == names
+    # the DeviceMesh lays 'pod' and 'data' out as one batch dimension
+    assert tuple(got["dm"]) == ((32, 16) if multi_pod else shape)
+    assert tuple(got["dm_names"]) == (("pod_data", "model") if multi_pod
+                                      else names)
     assert got["wrong_world"] == "raised"
     # the shape and names the reference's make_production_mesh asks jax for
     monkeypatch.setattr(r_mesh.jax, "make_mesh",
