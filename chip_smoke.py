@@ -118,15 +118,16 @@ exits nonzero:
                 hubert-xlarge, zamba2-7b at 5 layers, rwkv6-3b; outputs
                 within 1e-4, 8 greedy tokens equal where the family
                 decodes, MoE's first-layer routing equal); olmoe-1b-7b at
-                full width and depth (16 layers, d_model 2048, 64 experts,
-                top-8, bfloat16) through serve_lm.serve at batch 4, prompt
-                64, gen 32 with its times and peak memory, bf16's top-1
-                agreement with f32 on the same weights, the serve_lm CLI
-                at full size in a subprocess; one full-size pass of zamba2-7b
+                full width cut to 4 of its 16 layers (d_model 2048, 64
+                experts, top-8, bfloat16) through serve_lm.serve at batch
+                4, prompt 64, gen 32 with its times and peak memory, bf16's
+                top-1 agreement with f32 on the same weights, the serve_lm
+                CLI at that size in a subprocess; one full-width pass,
+                cut in depth (FULL_PASS_LAYERS), of zamba2-7b
                 and rwkv6-3b (serve_lm.serve), llava-next-mistral-7b
                 (576 vision embeddings over a 640-token prompt, batch 2,
                 8 decode steps) and hubert-xlarge ((2, 500, 1280) frames, bf16 and
-                f32), each with its wall and peak memory. Every model is
+                f32, whole), each with its wall and peak memory. Every model is
                 drawn from seed 0 on a CPU generator; the bf16-vs-f32
                 checks reuse the weights serve drew (a spy on its init).
  17. mesh     — seeded weights and the sharding layer: the weights that
@@ -187,14 +188,15 @@ exits nonzero:
                 serve_lm.py, train_lm.py; scripts/torch/
                 calibrate_perturbation.py, baseline_vs_optimized.py), each
                 through main([..., "--torch-device", "cuda"]) in-process
-                at the reference's sizes (train_lm's ~100M path 20 steps,
-                not 300), the anneal kernel's launches counted around the
-                phase; gates: quickstart SR(perturbation) > SR(gd),
+                at the reference's sizes (train_lm --small 100 steps and
+                its ~100M path 20, not 300), the anneal kernel's launches
+                counted around the phase; gates: quickstart SR(perturbation) > SR(gd),
                 maxcut_demo's assert, serve_lm's tokens equal to the CPU's,
                 train_lm --small finite with its last-5 mean loss below
                 its first-5, calibrate's default row SR(perturbation) >
                 SR(gd), baseline_vs_optimized's mean SR improvement > 1;
                 each file's wall and the card's name and power limit.
+Each phase ends with a ``{"phase": ..., "phase_s": ...}`` line, its wall.
 Then the total seconds, the card's name and power limit, the kernels
 line, and a last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -863,6 +865,10 @@ def level_energies(J, x):
 #: equal: the plan's default and one that gives another geometry at every
 #: case
 SB_BLOCK_R_PAIR = (None, 4)
+#: (case, variant) -> ms of compare_sb's one call of the plain version
+#: (CUDA events), which phase sb_timing reports at the Gset shape in place
+#: of calling it again (20-30 s a call there)
+SB_PLAIN_MS: dict = {}
 
 
 def compare_sb(J, Jc, x0, y0, n_true, variant, steps=SB_STEPS):
@@ -881,7 +887,10 @@ def compare_sb(J, Jc, x0, y0, n_true, variant, steps=SB_STEPS):
     xk = fused_sb_kernel(Jc, x0, y0, block_r=br_a, **kw)
     xk_again = fused_sb_kernel(Jc, x0, y0, block_r=br_a, **kw)
     xk_b = fused_sb_kernel(Jc, x0, y0, block_r=br_b, **kw)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
     xp = sb_reference(Jc, x0, y0, **kw)
+    b.record()
     torch.cuda.synchronize()
     check(xk.shape == x0.shape and bool(torch.isfinite(xk).all()),
           f"SB {variant}: kernel output not finite / wrong shape")
@@ -907,6 +916,7 @@ def compare_sb(J, Jc, x0, y0, n_true, variant, steps=SB_STEPS):
         "best_energy_kernel": ek.min(1).values.tolist(),
         "best_energy_plain": ep.min(1).values.tolist(),
         "max_abs_dx": float((xk - xp).abs().max()),
+        "plain_ms": a.elapsed_time(b),
     }
 
 
@@ -922,6 +932,7 @@ def phase_sb_compare():
         for variant in SB_VARIANTS:
             st = compare_sb(J, Jc, x0, y0, n_true, variant, steps)
             emit({"phase": "sb_compare", "case": label, **st})
+            SB_PLAIN_MS[label, variant] = st["plain_ms"]
             what = f"SB {variant} {label}"
             check(st["bitwise_repeat"] and st["bitwise_block_r_pair"],
                   f"{what}: kernel not bitwise repeatable / block_r-free")
@@ -1158,8 +1169,10 @@ def sb_plan_alternatives(Jc, x0, y0, steps, clusters):
 
 def phase_sb_timing():
     """Each SB variant's kernel (median of 5, CUDA events, after a warm-up;
-    the plan's default block_r) and plain version (median of 3 dense, one
-    call at Gset) at both main shapes, the bound (all operations, and the
+    the plan's default block_r) and plain version (median of 3 dense; at
+    Gset phase sb_compare's one call on the same inputs, ``SB_PLAIN_MS``,
+    or one call after a warm-up where that phase did not run) at both main
+    shapes, the bound (all operations, and the
     real spins' alone: sum over problems of 2·R·n²·T), the launch plan with
     its instance's registers and spills, and the products-only yardstick
     (``library_ms``: T f32 products (P, R, N) @ (P, N, N), TF32 off, by
@@ -1193,11 +1206,16 @@ def phase_sb_timing():
             kw = dict(variant=variant, n_steps=steps, dt=0.5, a0=1.0)
             k = cuda_ms(lambda: fused_sb_kernel(Jc, x0, y0, **kw), 5)
             # the plain version at 7000 spins takes seconds a call; the
-            # compare phase has held it against the kernel there
-            # (one call after the warm-up at Gset, where a call takes 20-30 s)
-            pl = (cuda_ms(lambda: sb_reference(Jc, x0, y0, **kw),
-                          3 if label == "maxcut_dense" else 1)
-                  if label != "gset_7000" else None)
+            # compare phase has held it against the kernel there. At Gset,
+            # where a call takes 20-30 s, the compare phase's one call on
+            # the same inputs (after the plain version ran at other shapes)
+            if label == "gset_7000":
+                pl = None
+            elif label == "gset" and (label, variant) in SB_PLAIN_MS:
+                pl = [SB_PLAIN_MS[label, variant]]
+            else:
+                pl = cuda_ms(lambda: sb_reference(Jc, x0, y0, **kw),
+                             3 if label == "maxcut_dense" else 1)
             row = {"name": KERNEL_NAMES[variant], "shape": [P, R, N],
                    "plan": plan, "steps": steps,
                    "ms": statistics.median(k), "ms_all": k,
@@ -2394,13 +2412,22 @@ LM_FAMILIES = ("granite-moe-3b-a800m", "olmoe-1b-7b",
 LM_MOE_ARCH = "olmoe-1b-7b"
 LLAVA_PASS = dict(batch=2, prompt_len=640, gen=8)
 HUBERT_FRAMES = (2, 500)
+#: the full-width passes of phase lm_families cut in depth (their weights
+#: are drawn on the host, which took most of the run's time limit at full
+#: depth); hubert-xlarge runs whole. zamba2-7b keeps two attn_every groups
+#: and a tail of 3 Mamba layers, as its 81 layers end.
+FULL_PASS_LAYERS = {"olmoe-1b-7b": 4, "zamba2-7b": 15, "rwkv6-3b": 8,
+                    "llava-next-mistral-7b": 8}
 
 
-def family_cfg(arch, full=False):
+def family_cfg(arch, full=False, cut=False):
+    """``arch``'s reduced config; with ``full`` its own, and with ``cut``
+    as well that one at ``FULL_PASS_LAYERS``' depth."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     if full:
-        return cfg
+        return (dataclasses.replace(cfg, n_layers=FULL_PASS_LAYERS[arch])
+                if cut else cfg)
     return cfg.reduced(n_layers=5) if cfg.family == "hybrid" else \
         cfg.reduced()
 
@@ -2493,13 +2520,13 @@ def phase_lm_families():
     (carried by ``convert``; TF32 off for matmuls and cuDNN): outputs
     within 1e-4, 8 greedy tokens equal where the family decodes, and for
     MoE the first layer's keep mask, expert assignment and slots equal.
-    (2) olmoe-1b-7b at full width and depth through ``serve_lm.serve``
-    (bf16 over f32 weights, batch 4, prompt 64, gen 32): times, peak
-    memory, finite logits; on the same weights bf16's top-1 agreement with
-    f32; the serve_lm CLI at full size. (3) One full-size pass
-    of each other family: zamba2-7b and rwkv6-3b through
-    ``serve_lm.serve`` (the prompt warmed token by token),
-    llava-next-mistral-7b's prefill of 576
+    (2) olmoe-1b-7b at full width, cut in depth (``FULL_PASS_LAYERS``),
+    through ``serve_lm.serve`` (bf16 over f32 weights, batch 4, prompt 64,
+    gen 32): times, peak memory, finite logits; on the same weights bf16's
+    top-1 agreement with f32; the serve_lm CLI at the same size. (3) One
+    full-width pass of each other family, cut in depth but for hubert:
+    zamba2-7b and rwkv6-3b through ``serve_lm.serve`` (the prompt warmed
+    token by token), llava-next-mistral-7b's prefill of 576
     vision embeddings spliced over a 640-token prompt at batch 2 and 8
     decode steps, hubert-xlarge's forward on (2, 500, 1280) frames in bf16
     and f32; each with its wall and peak memory."""
@@ -2550,12 +2577,12 @@ def phase_lm_families():
     del cpu, card
     free_cuda()
 
-    # olmoe-1b-7b at full width and depth, served
-    full = family_cfg(LM_MOE_ARCH, full=True)
+    # olmoe-1b-7b at full width, cut in depth, served
+    full = family_cfg(LM_MOE_ARCH, full=True, cut=True)
     torch.cuda.reset_peak_memory_stats()
     with served_params() as drawn:
         out = serve_lm.serve(LM_MOE_ARCH, reduced=False, torch_device="cuda",
-                             **LM_SERVE)
+                             n_layers=full.n_layers, **LM_SERVE)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "lm_families", "serve": {
         "arch": LM_MOE_ARCH, "n_layers": full.n_layers,
@@ -2600,7 +2627,7 @@ def phase_lm_families():
     free_cuda()
 
     cmd = [sys.executable, "-m", "repro_torch.launch.serve_lm", "--arch",
-           LM_MOE_ARCH, "--full-size"]
+           LM_MOE_ARCH, "--full-size", "--layers", str(full.n_layers)]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -2612,15 +2639,16 @@ def phase_lm_families():
     check(proc.returncode == 0 and "tok/s" in proc.stdout,
           f"serve_lm CLI for {LM_MOE_ARCH} exited {proc.returncode}")
 
-    # one full-size pass of every other family
+    # one full-width pass of every other family
     for arch in ("zamba2-7b", "rwkv6-3b"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = serve_lm.serve(arch, reduced=False, torch_device="cuda",
-                             **LM_SERVE)
+                             n_layers=FULL_PASS_LAYERS[arch], **LM_SERVE)
         wall = time.perf_counter() - t0
         emit({"phase": "lm_families", "full_pass": {
-            "arch": arch, "path": "serve_lm.serve", **LM_SERVE,
+            "arch": arch, "path": "serve_lm.serve",
+            "n_layers": FULL_PASS_LAYERS[arch], **LM_SERVE,
             "wall_s": wall, "warmup_s": out["prefill_s"],
             "decode_s": out["decode_s"], "tok_per_s": out["tok_per_s"],
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2628,7 +2656,7 @@ def phase_lm_families():
         check(out["logits_finite"], f"{arch} full size: non-finite logits")
         free_cuda()
 
-    cfg = family_cfg("llava-next-mistral-7b", full=True)
+    cfg = family_cfg("llava-next-mistral-7b", full=True, cut=True)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build(cfg)
@@ -2651,7 +2679,8 @@ def phase_lm_families():
             finite &= torch.isfinite(logits).all()
         torch.cuda.synchronize()
     emit({"phase": "lm_families", "full_pass": {
-        "arch": cfg.name, "path": "prefill + decode_step", **LLAVA_PASS,
+        "arch": cfg.name, "path": "prefill + decode_step",
+        "n_layers": cfg.n_layers, **LLAVA_PASS,
         "n_vision_tokens": cfg.n_vision_tokens,
         "wall_s": time.perf_counter() - t0, "prefill_s": t_prefill,
         "cache_pos": int(cache["pos"]),
@@ -2826,6 +2855,15 @@ TRAIN_FULL_PARAMS = 751_894_528
 #: the dry-run's cells on the card's torch: (arch, shape), then an Ising key
 DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("olmoe-1b-7b", "train_4k"))
 DRYRUN_ISING = "chip64"
+#: full-width cells cut in depth, traced in the same world, each with the
+#: reference's per-rank FLOPs on (16, 16) (``hlo_flops_per_device`` of
+#: ``repro.launch.dryrun.lower_cell`` with the cut config, compiled on 512
+#: forced host devices; tests/test_torch_dryrun.py measures it): (arch,
+#: layers, shape, reference FLOPs a rank). The port's count must stay
+#: within DRYRUN_CUT_MIN-DRYRUN_CUT_MAX of it.
+DRYRUN_DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k", 719_250_195_496.0),
+                    ("zamba2-7b", 6, "train_4k", 25_253_469_056_684.0))
+DRYRUN_CUT_MIN, DRYRUN_CUT_MAX = 0.5, 1.5
 #: the full-width step phase train measured, for phase dryrun's count
 REAL_STEP = {}
 
@@ -3308,15 +3346,18 @@ def real_step(step_fn, state, batch, cost) -> dict:
 def dryrun_world_cells() -> list:
     """``run_cell`` / ``run_ising_cell`` as rank 0 of a fake world of 256
     ranks on the card, in a child Python (one process holds one world):
-    one record a cell."""
+    one record a cell; then one a ``DRYRUN_DEPTH_CUT`` cell (its per-rank
+    FLOPs and collective bytes, keyed ``depth_cut``)."""
     code = "\n".join([
-        "import json, logging, sys",
+        "import dataclasses, json, logging, sys, time",
         f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})",
         "from repro_torch.launch import dryrun",
         "dryrun.init_fake_world(256)",
         "logging.getLogger('torch.distributed.tensor').setLevel(40)",
         "logging.getLogger('torch._logging').setLevel(40)",
         "import traceback",
+        "from repro_torch.configs import SHAPES, get_config",
+        "from repro_torch.launch.mesh import make_production_mesh",
         "failed = 0",
         f"for arch, shape in {DRYRUN_CELLS + (('ising', DRYRUN_ISING),)!r}:",
         "    try:",
@@ -3327,6 +3368,20 @@ def dryrun_world_cells() -> list:
         "        traceback.print_exc()",
         "        failed, rec = 1, {'arch': arch, 'shape': shape,"
         " 'error': repr(e)[:500]}",
+        "    print(json.dumps(rec), flush=True)",
+        f"for arch, layers, shape, _ in {DRYRUN_DEPTH_CUT!r}:",
+        "    t0 = time.perf_counter()",
+        "    rec = {'depth_cut': arch, 'layers': layers, 'shape': shape}",
+        "    try:",
+        "        traced, _, _ = dryrun._lower(dataclasses.replace(get_config("
+        "arch), n_layers=layers), SHAPES[shape], make_production_mesh("
+        "torch_device='cuda'))",
+        "        rec.update(flops=traced.cost.flops, collective_bytes=sum("
+        "traced.cost.collectives.values()), trace_s=time.perf_counter() - t0)",
+        "    except Exception as e:",
+        "        traceback.print_exc()",
+        "        failed = 1",
+        "        rec['error'] = repr(e)[:500]",
         "    print(json.dumps(rec), flush=True)",
         "sys.exit(failed)"])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -3345,7 +3400,10 @@ def dryrun_world_cells() -> list:
 def phase_dryrun():
     """The multi-pod dry-run on the card's torch (no kernel: the
     reference's dry-run lowers plain JAX). (1) Three cells traced in a
-    fake world of 256 ranks on the card's device type. (2) qwen3-0.6b at
+    fake world of 256 ranks on the card's device type, and two full-width
+    cells cut in depth (``DRYRUN_DEPTH_CUT``), whose per-rank FLOPs must
+    stay within ``DRYRUN_CUT_MIN``-``DRYRUN_CUT_MAX`` of the reference's.
+    (2) qwen3-0.6b at
     full width with phase train's batch traced on the card's (1, 1) host
     mesh against the real step: FLOPs, bytes and argument bytes
     exactly."""
@@ -3362,6 +3420,18 @@ def phase_dryrun():
     t0 = time.perf_counter()
     records = dryrun_world_cells()
     world_s = time.perf_counter() - t0
+    cuts = [rec for rec in records if "depth_cut" in rec]
+    records = [rec for rec in records if "depth_cut" not in rec]
+    for rec, (arch, layers, shape, ref) in zip(cuts, DRYRUN_DEPTH_CUT):
+        rec.update(reference_flops=ref, over_reference=rec["flops"] / ref)
+        emit({"phase": "dryrun", "depth_cut": rec})
+        check(DRYRUN_CUT_MIN <= rec["over_reference"] <= DRYRUN_CUT_MAX,
+              f"dry-run {arch} at {layers} layers x {shape}: "
+              f"{rec['flops']:.4g} FLOPs a rank, "
+              f"{rec['over_reference']:.3f}x the reference's {ref:.4g} "
+              f"(limits {DRYRUN_CUT_MIN}-{DRYRUN_CUT_MAX})")
+    check(len(cuts) == len(DRYRUN_DEPTH_CUT),
+          f"the dry-run's world gave {len(cuts)} depth-cut records")
     for rec in records:
         rep, mem = rec["roofline"], rec["memory"]
         emit({"phase": "dryrun", "cell": {
@@ -3446,8 +3516,8 @@ def entry_point(rel: str):
 def phase_examples(oracle_path):
     """The port's examples and paper scripts (``examples/torch/``,
     ``scripts/torch/``), each through ``main([..., "--torch-device",
-    "cuda"])`` in this process at the reference's sizes (train_lm's ~100M
-    path 20 steps, not 300), with the anneal kernel's launches counted
+    "cuda"])`` in this process at the reference's sizes (train_lm --small
+    100 steps and its ~100M path 20, not 300), with the anneal kernel's launches counted
     around the phase. Gates: the quickstart's mean SR with perturbation
     above gd's; maxcut_demo's assert; serve_lm's tokens equal to the same
     call's on the CPU; train_lm --small finite, its last-5 mean loss below
@@ -3489,7 +3559,8 @@ def phase_examples(oracle_path):
         train_mod = entry_point("examples/torch/train_lm.py")
         with tempfile.TemporaryDirectory() as tmp:
             small = timed("train_lm --small", lambda: train_mod.main(
-                ["--small", "--ckpt-dir", os.path.join(tmp, "small")]
+                ["--small", "--steps", "100", "--ckpt-dir",
+                 os.path.join(tmp, "small")]
                 + cuda))
             big = timed("train_lm 100M", lambda: train_mod.main(
                 ["--steps", "20", "--ckpt-dir", os.path.join(tmp, "100m")]
@@ -3598,7 +3669,11 @@ def main(argv=None) -> int:
             "dryrun": phase_dryrun,
             "examples": lambda: phase_examples(oracle_path),
         }
-        out = {name: run[name]() for name in PHASES if name in phases}
+        out = {}
+        for name in (p for p in PHASES if p in phases):
+            t0 = time.perf_counter()
+            out[name] = run[name]()
+            emit({"phase": name, "phase_s": time.perf_counter() - t0})
     emit({"phase": "end", "total_s": time.perf_counter() - START})
     if set(out) != set(PHASES):
         print(nvidia_smi(), flush=True)

@@ -168,6 +168,8 @@ def spec(*entries) -> tuple:
 
 
 def batch_axes(mesh) -> tuple:
+    if mesh is None:
+        return ()
     return tuple(a for a in BATCH_AXES if a in mesh.shape)
 
 

@@ -18,6 +18,7 @@ CUDA it raises unless given ``cpu``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -36,17 +37,21 @@ def _sync(dev: torch.device) -> None:
 
 def serve(arch: str, batch: int, prompt_len: int, gen: int,
           reduced: bool = True, greedy: bool = True, seed: int = 0,
-          torch_device: str | torch.device = "cuda"):
+          torch_device: str | torch.device = "cuda",
+          n_layers: int | None = None):
     """Serve ``batch`` synthetic prompts of ``prompt_len`` tokens and
     generate ``gen`` tokens each by greedy argmax (``greedy`` is the
     reference's flag; decoding is greedy either way). Returns the generated
     tokens (batch, gen), prefill and decode seconds (host clock around work
     that ends in a synchronize), decode tokens per second, and whether
-    every step's logits were finite."""
+    every step's logits were finite. ``n_layers`` cuts the config's depth
+    and keeps its widths (a full-width smoke run on a smaller budget)."""
     dev = resolve_device(torch_device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build(cfg)
     if model.decode_step is None:
         raise SystemExit(f"{arch} is encoder-only; no decode path")
@@ -100,12 +105,16 @@ def main(argv=None):
     ap.add_argument("--full-size", action="store_true",
                     help="the arch's full config (bfloat16); the default "
                          "is its reduced() config (float32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers, widths "
+                         "kept (default: its own depth)")
     ap.add_argument("--torch-device", default="cuda",
                     help="torch device to run on (default cuda; pass cpu "
                          "to serve on the host)")
     args = ap.parse_args(argv)
     out = serve(args.arch, args.batch, args.prompt_len, args.gen,
-                reduced=not args.full_size, torch_device=args.torch_device)
+                reduced=not args.full_size, torch_device=args.torch_device,
+                n_layers=args.layers)
     print(f"prefill {out['prefill_s']:.2f}s, decode {out['decode_s']:.2f}s "
           f"({out['tok_per_s']:.1f} tok/s), sample: "
           f"{np.asarray(out['generated'][0][:16])}")

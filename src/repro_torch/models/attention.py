@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import spec
-from .common import (from_local, local_shard, logical, process_mesh, psum,
+from .common import (from_local, local_shard, process_mesh, psum,
                      shard_axes, shard_index)
 
 NEG_INF = -1e30
@@ -42,33 +42,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_chunk: int = 512,
 
     q chunk i attends to kv chunks [0, n_need) only when causal; fully
     masked entries inside those chunks are computed and masked, as in the
-    reference. On a mesh of processes each rank attends on its own shard
-    (``_attention_over_ranks``).
+    reference. On a mesh of processes the models call it on each rank's
+    own batch rows and heads (``transformer._attn_over_ranks``).
     """
-    mesh = process_mesh()
-    if mesh is not None:
-        return _attention_over_ranks(q, k, v, mesh, causal=causal,
-                                     q_chunk=q_chunk, k_chunk=k_chunk,
-                                     scale=scale)
-    return _flash_attention(q, k, v, causal=causal, q_chunk=q_chunk,
-                            k_chunk=k_chunk, scale=scale)
-
-
-def _attention_over_ranks(q, k, v, mesh, **kw):
-    """Attention is independent per sequence and per head, so on a mesh
-    of processes each rank runs ``_flash_attention`` on its shard of both,
-    the layout of the reference's constraints on q, k and v (batch over
-    the data axes, heads over 'model'); no rank reads another's."""
-    h = q.shape[2]
-    s = logical("batch", None, "model", None)
-    o = _flash_attention(local_shard(q, mesh, s),
-                         local_shard(_expand_kv(k, h), mesh, s),
-                         local_shard(_expand_kv(v, h), mesh, s), **kw)
-    return from_local(o, mesh, s, q.shape)
-
-
-def _flash_attention(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int,
-                     scale: float | None):
     b, s, h, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     out_dtype = q.dtype

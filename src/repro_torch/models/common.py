@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import ACTIVE_MESH, BATCH_AXES, placements
+from ..distributed.sharding import ACTIVE_MESH, BATCH_AXES, placements, spec
 
 
 # --------------------------------------------------------------------------
@@ -112,8 +112,13 @@ def local_shard(t, mesh, s: tuple, *, split=True):
     replicates ``t`` on, it is partial where the ranks split the work
     (each adds its share, as ``shard_map`` transposes an input it does not
     map) and replicated where they compute the same: ``split`` is True
-    (every such axis splits), False (none does) or the axes that do."""
+    (every such axis splits), False (none does) or the axes that do.
+    With ``mesh`` None (no mesh of processes) ``t`` itself, as are the
+    other per-rank helpers' results: the per-rank code is then the whole
+    computation."""
     from torch.distributed.tensor import DTensor, Partial
+    if mesh is None:
+        return t
     if not isinstance(t, DTensor):
         raise TypeError("on a mesh of processes the per-rank code takes "
                         f"DTensors, got {type(t).__name__}")
@@ -134,23 +139,134 @@ def _spans(g: tuple, axes) -> bool:
     return all(hit)
 
 
-def psum(t, mesh, axes: tuple, op: str = "sum"):
+def psum(t, mesh, axes: tuple, op: str = "sum", *, split: bool = False):
     """This rank's ``t`` reduced over the mesh ``axes`` (an all-reduce, the
-    reference's ``psum``); the ranks of the other axes hold their own."""
+    reference's ``psum``); the ranks of the other axes hold their own.
+    Where the ranks use the sum for their own shares of the work
+    (``split``), its gradient is their sum as well."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    if not axes:
+    if mesh is None or not axes:
         return t
     pl = [Partial(op) if _spans(g, axes) else Replicate()
           for g in mesh.device_axes]
     return DTensor.from_local(t, mesh.device_mesh, pl, run_check=False
                               ).redistribute(mesh.device_mesh, [
-                                  Replicate()] * len(pl)).to_local()
+                                  Replicate()] * len(pl)).to_local(
+        grad_placements=[p if split else Replicate() for p in pl])
+
+
+def psum_scatter(t, mesh, axes: tuple, dim: int):
+    """This rank's ``t`` summed over the mesh ``axes``, of which this rank
+    keeps its share of dimension ``dim`` (a reduce-scatter, the
+    reference's ``psum_scatter``); the gradient is all-gathered."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if mesh is None or not axes:
+        return t
+    spans = [_spans(g, axes) for g in mesh.device_axes]
+    return DTensor.from_local(
+        t, mesh.device_mesh, [Partial() if s else Replicate() for s in spans],
+        run_check=False).redistribute(mesh.device_mesh, [
+            Shard(dim) if s else Replicate() for s in spans]).to_local()
+
+
+def gather(t, mesh, s: tuple, dim: int, shape, *, split=True):
+    """This rank's ``t``, laid out as spec ``s`` (which splits dimension
+    ``dim`` over 'model') in a tensor of global ``shape``, whole along
+    ``dim`` on every rank of a model group (an all-gather). Where the
+    model group's ranks use the whole for their own shares of the work
+    (``split``), the gradient is the ranks' sum, of which each keeps its
+    own slice (a reduce-scatter); else each keeps its slice of its own."""
+    whole = list(s)
+    whole[dim] = None
+    return local_shard(from_local(t, mesh, s, shape), mesh, spec(*whole),
+                       split=(MODEL_AXIS,) if split else False)
+
+
+def whole(t, mesh, split: tuple = ()):
+    """The DTensor parameter ``t`` whole on this rank, for per-rank code
+    that uses all of it. Its gradient is summed over the mesh axes in
+    ``split``, whose ranks use it on their own tokens (batch axes) or for
+    their own parts of the work (model axes). A parameter split over
+    'model' is gathered, and its gradient reduce-scattered back before the
+    batch axes reduce it, so no rank reduces more than its own slice
+    there."""
+    if mesh is None:
+        return t
+    s = spec(*(shard_axes(t, mesh, i) for i in range(t.dim())))
+    dims = [i for i, e in enumerate(s) if e is not None]
+    if not dims:
+        return local_shard(t, mesh, s, split=tuple(split))
+    i, = dims
+    return gather(local_shard(t, mesh, s, split=tuple(
+        a for a in split if a in BATCH_AXES)), mesh, s, i, t.shape,
+        split=MODEL_AXIS in split)
+
+
+def model_axes(mesh, *dims: int) -> tuple:
+    """('model',) where the mesh has that axis and its size divides every
+    one of ``dims``, else () (also with ``mesh`` None)."""
+    if mesh is None or MODEL_AXIS not in mesh.shape:
+        return ()
+    tp = mesh.shape[MODEL_AXIS]
+    return (MODEL_AXIS,) if all(n % tp == 0 for n in dims) else ()
+
+
+def own_range(n: int, mesh) -> tuple:
+    """This rank's [lo, hi) of ``n`` heads split over 'model' as DTensor
+    splits an uneven dimension: chunks of ceil(n / tp), the last ones
+    short or empty (40 heads on 16 ranks: 3 on each of ranks 0-12, 1 on
+    rank 13, none on 14 and 15). All of them with ``mesh`` None."""
+    tp = 1 if mesh is None else mesh.shape.get(MODEL_AXIS, 1)
+    if tp == 1:
+        return 0, n
+    c = -(-n // tp)
+    lo = min(mesh.device_mesh.get_local_rank(MODEL_AXIS) * c, n)
+    return lo, min(lo + c, n)
+
+
+def own_part(t, mesh, dim: int, lo: int, hi: int, split: tuple):
+    """Entries [lo, hi) of dimension ``dim`` of the parameter ``t``, for
+    this rank's share of the work, which the ranks of the mesh axes
+    ``split`` divide: ``t`` itself where that is all of it (always with
+    ``mesh`` None); where they are this rank's even share of ``dim`` over
+    'model', ``t`` split so (its gradient gathered back); else sliced from
+    ``whole(t, mesh, split)``."""
+    n = t.shape[dim]
+    if MODEL_AXIS in split and n % mesh.shape[MODEL_AXIS] == 0:
+        c = n // mesh.shape[MODEL_AXIS]
+        if (lo, hi) == (mesh.device_mesh.get_local_rank(MODEL_AXIS) * c,
+                        lo + c):
+            s = [None] * t.dim()
+            s[dim] = MODEL_AXIS
+            return local_shard(t, mesh, spec(*s), split=tuple(
+                a for a in split if a in BATCH_AXES))
+    w = whole(t, mesh, split)
+    return w if (lo, hi) == (0, n) else w.narrow(dim, lo, hi - lo)
+
+
+def gather_heads(t, mesh, dim: int, n: int, batch: int, row):
+    """(B_l, ..., h_l, ...) this rank's heads ``own_range(n)`` on dimension
+    ``dim`` -> every head on every rank of its model group; the gradient
+    keeps each rank's own. ``row`` is the spec entry of the rows (of
+    ``batch`` in all). Uneven shares are padded to ceil(n / tp) heads for
+    the gather."""
+    tp = mesh.shape.get(MODEL_AXIS, 1)
+    c = -(-n // tp)
+    if t.shape[dim] < c:
+        t = F.pad(t, [0, 0] * (t.dim() - 1 - dim) + [0, c - t.shape[dim]])
+    s = (row,) + logical(*("model" if i == dim else None
+                           for i in range(1, t.dim())))
+    shape = (batch,) + tuple(t.shape[1:dim]) + (c * tp,) + tuple(
+        t.shape[dim + 1:])
+    return gather(t, mesh, s, dim, shape).narrow(dim, 0, n)
 
 
 def from_local(t, mesh, s: tuple, shape):
     """This rank's result ``t`` as the DTensor of global ``shape``
     (contiguous) laid out as spec ``s``: the exit of per-rank code."""
     from torch.distributed.tensor import DTensor
+    if mesh is None:
+        return t
     shape = tuple(shape)
     return DTensor.from_local(
         t, mesh.device_mesh, placements(s, mesh.device_axes), run_check=False,
@@ -176,34 +292,28 @@ def shard_axes(t, mesh, dim: int) -> tuple:
 
 
 def heads_over_ranks(mesh, n_heads: int):
-    """The spec entry of a head axis on ``mesh``: 'model' when its size
-    divides ``n_heads`` (each rank owns whole heads), else None (every
-    rank computes every head, as ``fit_spec`` drops an indivisible
-    axis)."""
+    """The spec entry of a decode state's head axis on ``mesh``: 'model'
+    when its size divides ``n_heads``, else None (``cache_spec``
+    replicates the state then)."""
     tp = mesh.shape.get(MODEL_AXIS, 1)
     return MODEL_AXIS if n_heads % tp == 0 else None
-
-
-def local_heads(t, mesh, head_dim: int):
-    """(B, S, H * head_dim) DTensor -> this rank's (B_l, S, H_l * head_dim)
-    of whole heads (``heads_over_ranks``), for a per-head recurrence."""
-    n = t.shape[-1] // head_dim
-    whole = t.redistribute(mesh.device_mesh, placements(
-        logical("batch", None, None), mesh.device_axes))
-    ax = heads_over_ranks(mesh, n)
-    return local_shard(whole.unflatten(-1, (n, head_dim)), mesh,
-                       logical("batch", None, ax, None),
-                       split=False).flatten(2)
 
 
 # --------------------------------------------------------------------------
 # Norms / activations
 # --------------------------------------------------------------------------
 
-def rms_norm(x, weight, eps: float = 1e-5):
+def rms_norm(x, weight, eps: float = 1e-5, mesh=None, axes: tuple = (),
+             n: int = 0):
+    """RMSNorm over the last dimension; where the ranks of the mesh
+    ``axes`` each hold their own channels of it (``n`` in all), its mean
+    adds their sums."""
     dt = x.dtype
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    ms = (torch.mean(x * x, dim=-1, keepdim=True) if not axes else
+          psum(torch.sum(x * x, dim=-1, keepdim=True), mesh, axes,
+               split=True) / n)
+    x = x * torch.rsqrt(ms + eps)
     return (x * weight.float()).to(dt)
 
 

@@ -19,14 +19,14 @@ and the last one is padded with zeros.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import batch_axes
-from .common import (dense_init, from_local, heads_over_ranks, local_heads,
-                     local_shard, logical, process_mesh, rms_norm, shard)
+from ..distributed.sharding import batch_axes, data_size, spec
+from .common import (MODEL_AXIS, dense_init, from_local, gather,
+                     gather_heads, heads_over_ranks, local_shard, logical,
+                     model_axes, own_part, own_range, process_mesh, psum,
+                     psum_scatter, rms_norm)
 
 WRAW_CLAMP = 0.65
 CHUNK = 32
@@ -117,85 +117,166 @@ def _wkv_chunked(r, k, v, logw, u, head_dim: int):
     return y, S
 
 
-def _wkv_over_ranks(r, k, v, logw, u, head_dim: int, *, mesh):
-    """``_wkv_chunked`` on a mesh of processes: heads are independent, so
-    each rank runs the recurrence of its own whole heads
-    (``common.local_heads``) of its batch shard."""
-    b, s, d = r.shape
-    ax = heads_over_ranks(mesh, d // head_dim)
-    y, S = _wkv_chunked(*(local_heads(t, mesh, head_dim)
-                          for t in (r, k, v, logw)),
-                        local_shard(u, mesh, logical(ax, None),
-                                    split=batch_axes(mesh)),
-                        head_dim)
-    return (from_local(y, mesh, logical("batch", None, ax), (b, s, d)),
-            from_local(S, mesh, logical("batch", ax, None, None),
-                       (b, d // head_dim, head_dim, head_dim)))
+class _Ranks:
+    """This rank's share of a block (the reference's partition of its
+    column- and row-parallel weights), given per rank so each rank does
+    its own share whatever DTensor's propagation would pick. With ``mesh``
+    None its helpers return their input and the block is whole. The
+    block's channels (d of them) are split over 'model' when its size
+    divides d (``cm`` the axes that split them, ``cols`` their spec
+    entry). A batch the batch axes divide is split over them (``batch``;
+    ``rows`` the spec of a (B, S, D) activation). One they do not divide
+    (a single sequence decoding) is whole on every rank, and the batch
+    axes split the products' contracted channels instead (``kax``; ``k``
+    their spec entry), as XLA partitions the reference's decode of one
+    sequence."""
+
+    def __init__(self, mesh, batch: int, *dims):
+        self.mesh = mesh
+        self.cm = model_axes(mesh, *dims)
+        self.cols = self.cm[0] if self.cm else None
+        split = batch % data_size(mesh) == 0
+        self.batch = batch_axes(mesh) if split else ()
+        self.kax = () if split else batch_axes(mesh)
+        self.k = spec(self.kax)[0]
+        self.rows = logical("batch", None, None) if split else (None,) * 3
+
+    def input(self, x):
+        """An input (B, ..., D) as this rank's rows and its contracted
+        channels (all, or its share over ``kax``); its gradient partial
+        where the channels are split."""
+        return local_shard(x, self.mesh, (self.rows[0],) + (None,) * (
+            x.dim() - 2) + (self.k,), split=self.cm)
+
+    def x(self, x, x_prev):
+        """The block's input and its token-shifted copy (zeros before the
+        first token without ``x_prev``), as ``input``, in float32."""
+        xl = self.input(x)
+        xp = (torch.zeros((xl.shape[0], 1, xl.shape[2]), dtype=xl.dtype,
+                          device=xl.device) if x_prev is None else
+              self.input(x_prev))
+        xs = _shift(xl, xp)
+        return xl.float(), xs.float()
+
+    def vec(self, t):
+        """A replicated (D,) parameter over the input's channels."""
+        return local_shard(t, self.mesh, (self.k,),
+                           split=self.batch + self.cm)
+
+    def part(self, w, s):
+        """The parameter ``w`` laid out as spec ``s``; its gradient partial
+        over the batch axes that split the rows."""
+        return local_shard(w, self.mesh, s, split=self.batch)
+
+    def mm(self, a, w):
+        """``a`` (its contracted channels) by this rank's columns of the
+        column-parallel ``w`` (cast to ``a``'s dtype), summed over
+        ``kax``."""
+        return psum(a @ self.part(w, (self.k, self.cols)).to(a.dtype),
+                    self.mesh, self.kax)
+
+    def gather_cols(self, t, batch, split=True):
+        """(B_l, S, D / tp) this rank's channels -> every channel, which
+        the ranks use for their own shares (``split``) or as a whole."""
+        if not self.cm:
+            return t
+        return gather(t, self.mesh, (self.rows[0], None, self.cols), 2,
+                      (batch, t.shape[1], t.shape[2] * self.mesh.shape[
+                          MODEL_AXIS]), split=split)
+
+    def own_cols(self, t):
+        """(B_l, S, D) -> this rank's channels."""
+        if not self.cm:
+            return t
+        n = t.shape[-1] // self.mesh.shape[MODEL_AXIS]
+        i = self.mesh.device_mesh.get_local_rank(MODEL_AXIS)
+        return t[..., i * n:(i + 1) * n]
 
 
-def _tmix_inputs(p, x, x_prev):
-    xs = _shift(x, x_prev)
-    xf, xsf = x.float(), xs.float()
-    r = _mix(xf, xsf, p["mu_r"]) @ p["Wr"]
-    k = _mix(xf, xsf, p["mu_k"]) @ p["Wk"]
-    v = _mix(xf, xsf, p["mu_v"]) @ p["Wv"]
-    g = _mix(xf, xsf, p["mu_g"]) @ p["Wg"]
-    xw = _mix(xf, xsf, p["mu_w"])
-    wraw = p["w0"] + torch.tanh(xw @ p["wA"]) @ p["wB"]
+def _tmix(p, x, x_prev, S0, head_dim: int):
+    """The time mix of x (B, S, D): (y, (last_x, S)). ``S0`` None runs the
+    chunked form (a whole sequence from a zero state); else one token
+    from state ``S0``.
+
+    On a mesh of processes each rank runs it on its own batch rows: r, k,
+    v, g and the decay from its own channels of the column-parallel Wr /
+    Wk / Wv / Wg / wA (the decay lora's 64 wide activations gathered);
+    the recurrence over whole heads, ``own_range`` of them (40 heads on 16
+    ranks: 3 or fewer a rank, none computed twice), on r, k, v and the
+    decay gathered over 'model'; its output gathered back to the rank's
+    channels for the gate and the row-parallel Wo, whose partial sums are
+    all-reduced. A decode state's heads are split only where its spec
+    splits them (the decode cache of 40 heads is replicated on 16 ranks,
+    and a split would gather the new state each step)."""
+    mesh = process_mesh()
+    b, s, d = x.shape
+    h = d // head_dim
+    rk = _Ranks(mesh, b, d, p["wA"].shape[1])
+    xf, xsf = rk.x(x, x_prev)
+
+    def mix(name):
+        return _mix(xf, xsf, rk.vec(p[name]))
+    col = (None, rk.cols)
+    r, k, v, g = (rk.mm(mix("mu_" + n), p["W" + n]) for n in "rkvg")
+    a = rk.gather_cols(torch.tanh(rk.mm(mix("mu_w"), p["wA"])), b)
+    wraw = rk.part(p["w0"], (rk.cols,)) + a @ rk.part(p["wB"], col)
     logw = -torch.exp(torch.clamp(wraw, max=WRAW_CLAMP))  # <= -0 per channel
-    return r, k, v, g, logw
 
-
-def _tmix_out(p, y, g, x_dtype, head_dim: int):
-    """Per-head norm, ln_w, the silu(g) gate and Wo; y (B, S, D) float32."""
-    b, s, d = y.shape
+    h0, h1 = own_range(h, mesh) if rk.cm and (
+        S0 is None or heads_over_ranks(mesh, h) is not None) else (0, h)
+    split = h1 - h0 < h
+    r, k, v, logw = (rk.gather_cols(t, b) for t in (r, k, v, logw))
+    if split:
+        r, k, v, logw = (t[..., h0 * head_dim:h1 * head_dim]
+                         for t in (r, k, v, logw))
+    u = own_part(p["u"], mesh, 0, h0, h1, rk.batch + (rk.cm if split else ()))
+    hs = (rk.rows[0], "model" if split else None, None, None)
+    if S0 is None:
+        y, S = _wkv_chunked(r, k, v, logw, u, head_dim)
+    else:
+        y, S = _wkv_step(r, k, v, logw,
+                         local_shard(S0, mesh, hs, split=False), u, head_dim)
     ones = torch.ones((head_dim,), dtype=torch.float32, device=y.device)
-    y = rms_norm(y.reshape(b, s, d // head_dim, head_dim), ones)
-    # whole channels on a mesh of processes: Wo's row-parallel gradient
-    # arrives channel-sharded, and 'model' need not divide the heads
-    y = shard(y.reshape(b, s, d), "batch", None, None) \
-        * p["ln_w"][None, None, :]
+    y = rms_norm(y.reshape(y.shape[0], s, h1 - h0, head_dim), ones)
+    if split:
+        y = gather_heads(y, mesh, 2, h, b, rk.rows[0])
+    y = rk.own_cols(y.flatten(2)) * rk.part(p["ln_w"], (rk.cols,))[
+        None, None, :]
     y = y * F.silu(g)
-    return (y @ p["Wo"]).to(x_dtype)
+    y = psum(y @ rk.part(p["Wo"], (rk.cols, None)), mesh, rk.cm).to(x.dtype)
+    return (from_local(y, mesh, rk.rows, (b, s, d)),
+            (x[:, -1:], from_local(S, mesh, hs,
+                                   (b, h, head_dim, head_dim))))
 
 
 def apply_rwkv_tmix(p, x, x_prev=None, head_dim: int = 64):
     """x (B, S, D) -> (y, (last_x, S_final)). float32 internals."""
-    b, _, d = x.shape
-    if x_prev is None:
-        x_prev = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-    r, k, v, g, logw = _tmix_inputs(p, x, x_prev)
-    mesh = process_mesh()
-    wkv = _wkv_chunked if mesh is None else functools.partial(
-        _wkv_over_ranks, mesh=mesh)
-    y, S = wkv(r, k, v, logw, p["u"], head_dim)
-    return _tmix_out(p, y, g, x.dtype, head_dim), (x[:, -1:], S)
+    return _tmix(p, x, x_prev, None, head_dim)
 
 
 def apply_rwkv_cmix(p, x, x_prev=None):
-    """x (B, S, D) -> (y, last_x)."""
-    b, _, d = x.shape
-    if x_prev is None:
-        x_prev = torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-    xs = _shift(x, x_prev)
-    xf, xsf = x.float(), xs.float()
-    k = _mix(xf, xsf, p["mu_k"]) @ p["Wk"]
-    r = _mix(xf, xsf, p["mu_r"]) @ p["Wr"]
-    out = (torch.square(F.relu(k)) @ p["Wv"]) * torch.sigmoid(r)
-    return out.to(x.dtype), x[:, -1:]
+    """x (B, S, D) -> (y, last_x). On a mesh of processes each rank runs it
+    on its own batch rows and its own columns of the column-parallel Wk /
+    Wr (rows of the row-parallel Wv): the partial sums of the Wv product
+    are reduce-scattered to the rank's channels, gated by its own r, and
+    the result gathered whole."""
+    mesh = process_mesh()
+    b, s, d = x.shape
+    rk = _Ranks(mesh, b, d, p["Wk"].shape[1])
+    xf, xsf = rk.x(x, x_prev)
+    k = rk.mm(_mix(xf, xsf, rk.vec(p["mu_k"])), p["Wk"])
+    r = rk.mm(_mix(xf, xsf, rk.vec(p["mu_r"])), p["Wr"])
+    kv = torch.square(F.relu(k)) @ rk.part(p["Wv"], (rk.cols, None))
+    out = (psum_scatter(kv, mesh, rk.cm, 2) * torch.sigmoid(r)).to(x.dtype)
+    return from_local(rk.gather_cols(out, b, split=False), mesh, rk.rows,
+                      (b, s, d)), x[:, -1:]
 
 
 def decode_rwkv_tmix(p, x, state, head_dim: int = 64):
     """x (B, 1, D); state {'x': (B, 1, D), 'S': (B, H, N, N)} -> (y, new
     state)."""
-    b, _, d = x.shape
-    r, k, v, g, logw = _tmix_inputs(p, x, state["x"])
-    mesh = process_mesh()
-    step = _wkv_step if mesh is None else functools.partial(
-        _wkv_step_over_ranks, mesh=mesh)
-    y, S_new = step(r, k, v, logw, state["S"], p["u"], head_dim)
-    return (_tmix_out(p, y.reshape(b, 1, d), g, x.dtype, head_dim),
-            {"x": x, "S": S_new})
+    y, (_, S_new) = _tmix(p, x, state["x"], state["S"], head_dim)
+    return y, {"x": x, "S": S_new}
 
 
 def _wkv_step(r, k, v, logw, S, u, head_dim: int):
@@ -212,18 +293,11 @@ def _wkv_step(r, k, v, logw, S, u, head_dim: int):
     return y, S * w[..., None] + kv
 
 
-def _wkv_step_over_ranks(r, k, v, logw, S, u, head_dim: int, *, mesh):
-    """``_wkv_step`` on a mesh of processes, each rank on its own heads."""
-    b, _, d = r.shape
-    h = d // head_dim
-    ax = heads_over_ranks(mesh, h)
-    y, S = _wkv_step(*(local_heads(t, mesh, head_dim)
-                       for t in (r, k, v, logw)),
-                     local_shard(S, mesh, logical("batch", ax, None, None),
-                                 split=False),
-                     local_shard(u, mesh, logical(ax, None),
-                                 split=batch_axes(mesh)),
-                     head_dim)
-    return (from_local(y, mesh, logical("batch", ax, None), (b, h, head_dim)),
-            from_local(S, mesh, logical("batch", ax, None, None),
-                       (b, h, head_dim, head_dim)))
+def head_logits(h, w):
+    """``(h @ w).float()`` of the last hidden states h (B, D) and the
+    column-parallel head w (D, V); on a mesh of processes the logits of
+    this rank's columns, as ``_Ranks`` splits a block's products."""
+    b, d = h.shape
+    rk = _Ranks(process_mesh(), b, d, w.shape[1])
+    out = rk.mm(rk.input(h), w).float()
+    return from_local(out, rk.mesh, (rk.rows[0], rk.cols), (b, w.shape[1]))

@@ -9,7 +9,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .common import embed_init, shard
 from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, decode_rwkv_tmix,
-                    init_rwkv_cmix, init_rwkv_tmix)
+                    head_logits, init_rwkv_cmix, init_rwkv_tmix)
 from .transformer import (_apply_norm, _dtype, _embed, _init_norm,
                           chunked_ce_loss, init_stacked, layers, place,
                           remat)
@@ -100,5 +100,5 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
         cx[i] = cx_new.to(cx.dtype)
         S[i] = st["S"]
     h = _apply_norm(cfg, params["final_norm"], x)[:, 0]
-    logits = (h @ params["head"].to(h.dtype)).float()
+    logits = head_logits(h, params["head"])
     return logits, {**cache, "pos": int(cache["pos"]) + 1}

@@ -37,11 +37,13 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed.sharding import batch_axes, spec
 from ..pytree import tree_map
-from .attention import decode_attention, flash_attention, write_position
+from .attention import (_expand_kv, decode_attention, flash_attention,
+                        write_position)
 from .common import (act_fn, apply_rope, dense_init, embed_init,
                      from_local, layer_norm, local_shard, logical,
-                     process_mesh, psum, replicated, rms_norm, shard,
-                     shard_axes, shard_index)
+                     model_axes, own_part, own_range, process_mesh, psum,
+                     replicated, rms_norm, shard, shard_axes, shard_index,
+                     whole)
 from .moe import apply_moe, init_moe
 
 #: the families this module builds (zamba and rwkv_model build the others)
@@ -194,57 +196,135 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 # Forward (prefill)
 # --------------------------------------------------------------------------
 
-def _mask_pad_heads(o, cfg: ModelConfig):
+def _mask_pad_heads(o, cfg: ModelConfig, first: int = 0):
     """Zero the padded attention heads so they carry no function: the
-    padded model is EXACTLY the logical n_heads model."""
+    padded model is EXACTLY the logical n_heads model. ``o``'s heads are
+    heads ``first`` on."""
     hp = o.shape[2]
-    if hp == cfg.n_heads:
+    if first + hp <= cfg.n_heads:
         return o
-    mask = (torch.arange(hp, device=o.device) < cfg.n_heads).to(o.dtype)
+    mask = (torch.arange(first, first + hp, device=o.device)
+            < cfg.n_heads).to(o.dtype)
     return o * mask[None, None, :, None]
 
 
-def _qkv(p, cfg: ModelConfig, x, positions):
+def _head_shares(cfg: ModelConfig, mesh):
+    """(qm, (q0, q1), (k0, k1)): the mesh axes that split the query heads
+    (('model',) where its size divides them, else ()), this rank's query
+    heads (``own_range``) and the KV heads they read. Every head with
+    ``mesh`` None."""
+    hp = cfg.padded_heads
+    qm = model_axes(mesh, hp)
+    q0, q1 = own_range(hp, mesh) if qm else (0, hp)
+    g = hp // cfg.n_kv_heads
+    return qm, (q0, q1), (q0 // g, (q1 - 1) // g + 1)
+
+
+def _qkv(p, cfg: ModelConfig, x, positions, mesh=None, kv_heads=None):
+    """q, k, v of x as the reference's ``_qkv`` makes them. With ``mesh``
+    None, of every head (plain tensors, or DTensors left to DTensor's
+    propagation, as decode's are). On a mesh of processes ``x`` and
+    ``positions`` are DTensors and the work this rank's (the reference's
+    partition): its rows of x, q of its own query heads from its columns
+    of the head-parallel wq, and k, v of the KV heads they read. With
+    ``kv_heads`` ([lo, hi)) only k and v, of those KV heads."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    qm, q_heads, kv_read = _head_shares(cfg, mesh)
+    names = "qkv" if kv_heads is None else "kv"
+    heads = {"q": q_heads, "k": kv_heads or kv_read, "v": kv_heads or kv_read}
+    split = batch_axes(mesh) + qm
+    x = local_shard(x, mesh, logical("batch", None, None), split=qm)
+
+    def part(w, n, dim):
+        return own_part(p[w + n], mesh, dim, *heads[n], split).to(dt)
+    t = {n: torch.einsum("bsd,dhk->bshk", x, part("w", n, 1)) for n in names}
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
+        t = {n: t[n] + part("b", n, 0) for n in names}
+    qk = names.replace("v", "")
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        for n in qk:
+            t[n] = rms_norm(t[n], whole(p[n + "_norm"], mesh, split),
+                            cfg.norm_eps)
     if cfg.rope_fraction > 0:
-        q = apply_rope(q, positions, fraction=cfg.rope_fraction,
-                       theta=cfg.rope_theta)
-        k = apply_rope(k, positions, fraction=cfg.rope_fraction,
-                       theta=cfg.rope_theta)
-    return q, k, v
+        pos = local_shard(positions, mesh, logical("batch", None),
+                          split=False)
+        for n in qk:
+            t[n] = apply_rope(t[n], pos, fraction=cfg.rope_fraction,
+                              theta=cfg.rope_theta)
+    return tuple(t[n] for n in names)
 
 
-def _attn_out(p, cfg: ModelConfig, o, dt):
-    o = _mask_pad_heads(o, cfg)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dt))
+def _attn_out(p, cfg: ModelConfig, o, dt, mesh=None):
+    """o @ wo over the heads o holds (``_qkv``'s q heads on ``mesh``): on a
+    mesh of processes wo's rows of the rank's heads, whose partial sums
+    are all-reduced."""
+    qm, (q0, q1), _ = _head_shares(cfg, mesh)
+    o = _mask_pad_heads(o, cfg, q0)
+    wo = own_part(p["wo"], mesh, 0, q0, q1, batch_axes(mesh) + qm)
+    return psum(torch.einsum("bshk,hkd->bsd", o, wo.to(dt)), mesh, qm)
+
+
+def _attention(p, cfg: ModelConfig, x, positions, keep_kv: bool = False):
+    """Self-attention of x (B, S, D): (out, (k, v) if ``keep_kv`` else
+    None). On a mesh of processes each rank runs it on its own batch rows
+    and its own query heads (``_qkv``), the rank's heads' KV heads
+    repeated for them as ``flash_attention`` repeats them all; with
+    ``keep_kv`` (prefill's cache) k and v are DTensors whose KV heads are
+    split over 'model' as ``own_range`` splits them (a rank's share is the
+    heads it reads where 'model' divides them, else computed beside
+    those)."""
+    mesh = process_mesh()
+    hp, hkv = cfg.padded_heads, cfg.n_kv_heads
+    qm, (q0, q1), (k0, k1) = _head_shares(cfg, mesh)
+    q, k, v = _qkv(p, cfg, x, positions, mesh)
+    kq, vq = k, v
+    if (q0, q1) != (0, hp):
+        g = hp // hkv
+        kq, vq = (_expand_kv(t, (k1 - k0) * g)[:, :, q0 - k0 * g:q1 - k0 * g]
+                  for t in (k, v))
+    o = flash_attention(q, kq, vq, causal=cfg.causal,
+                        q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    rows = logical("batch", None, None)
+    out = from_local(_attn_out(p, cfg, o, x.dtype, mesh), mesh, rows,
+                     x.shape)
+    if not keep_kv:
+        return out, None
+    c0, c1 = own_range(hkv, mesh) if qm else (0, hkv)
+    if (c0, c1) != (k0, k1):
+        k, v = _qkv(p, cfg, x, positions, mesh, kv_heads=(c0, c1))
+    kv_spec = logical("batch", None, "model" if qm else None, None)
+    shape = tuple(x.shape[:2]) + (hkv, cfg.head_dim)
+    return out, tuple(from_local(t, mesh, kv_spec, shape) for t in (k, v))
 
 
 def attn_block(p, cfg: ModelConfig, x, positions):
-    q, k, v = _qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk,
-                        k_chunk=cfg.attn_k_chunk)
-    return _attn_out(p, cfg, o, x.dtype)
+    return _attention(p, cfg, x, positions)[0]
 
 
 def ffn_block(p, cfg: ModelConfig, x):
+    """The MLP (or MoE). On a mesh of processes Megatron's pair (the
+    reference's partition): each rank multiplies its own rows by its own
+    columns of the column-parallel wi / wg and its rows of the
+    row-parallel wo, and the partial sums are all-reduced over 'model'. A
+    weight's gradient is the rank's own tokens against its own columns,
+    summed over the batch axes."""
     if cfg.n_experts:
         return apply_moe(p, x, top_k=cfg.top_k,
                          capacity_factor=cfg.capacity_factor, act=cfg.act)
+    mesh = process_mesh()
     dt = x.dtype
+    fm = model_axes(mesh, p["wi"].shape[-1])
+    fax = fm[0] if fm else None
+    rows = logical("batch", *([None] * (x.dim() - 1)))
+    xl = local_shard(x, mesh, rows, split=fm)
+
+    def w(name, s):
+        return local_shard(p[name], mesh, s, split=batch_axes(mesh)).to(dt)
     a = act_fn(cfg.act)
-    hi = x @ p["wi"].to(dt)
-    hidden = a(x @ p["wg"].to(dt)) * hi if "wg" in p else a(hi)
-    return hidden @ p["wo"].to(dt)
+    hi = xl @ w("wi", (None, fax))
+    hidden = a(xl @ w("wg", (None, fax))) * hi if "wg" in p else a(hi)
+    return from_local(psum(hidden @ w("wo", (fax, None)), mesh, fm), mesh,
+                      rows, x.shape)
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -318,19 +398,17 @@ def _positions(b: int, s: int, device):
 def apply_block(p, cfg: ModelConfig, x, positions):
     """One block (the reference's ``apply_block``): the new residual
     stream."""
-    return _block_collect(p, cfg, x, positions)[0]
+    return _block_collect(p, cfg, x, positions, keep_kv=False)[0]
 
 
-def _block_collect(p, cfg: ModelConfig, x, positions):
-    """One block; returns the new residual stream and the block's (k, v)."""
-    q, k, v = _qkv(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
-                   positions)
-    o = flash_attention(q, k, v, causal=cfg.causal, q_chunk=cfg.attn_q_chunk,
-                        k_chunk=cfg.attn_k_chunk)
-    x = shard(x + _attn_out(p["attn"], cfg, o, x.dtype),
-              "batch", None, None)
+def _block_collect(p, cfg: ModelConfig, x, positions, keep_kv: bool = True):
+    """One block; returns the new residual stream and the block's (k, v)
+    (None unless ``keep_kv``)."""
+    a, kv = _attention(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
+                       positions, keep_kv)
+    x = shard(x + a, "batch", None, None)
     x = x + ffn_block(p["ffn"], cfg, _apply_norm(cfg, p["norm2"], x))
-    return shard(x, "batch", None, None), (k, v)
+    return shard(x, "batch", None, None), kv
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None,

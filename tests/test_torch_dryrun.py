@@ -15,19 +15,25 @@ Exactness, fixed before the port was written:
     megatron pair's local FLOPs and its all-reduce's bytes on (16, 16);
     reduced zamba2's and rwkv6's per-rank counts on (2, 2, 2) against
     (4, 2);
+  * bounds: full-width zamba2-7b (6 layers) and rwkv6-3b (1 layer) at
+    train_4k and prefill_32k count 0.5-1.5x the reference's compiled
+    per-device FLOPs on (16, 16) and (2, 16, 16), and the train steps'
+    (2, 16, 16) count is 0.49-0.52 of their (16, 16) count;
   * bitwise: MoE's F slices across 2 gloo ranks against the virtual
     (1, 2) mesh, and the routing at tp = 2 and 4;
   * ``tests/test_torch_moe.py``'s rtol=1e-4, atol=1e-5: the slices across
     4 gloo ranks, every gradient of the MoE layer, and the losses and
     three decode steps' logits of reduced qwen3-0.6b, hubert-xlarge,
     zamba2-7b and rwkv6-3b on (1, 2), (2, 2) and (2, 1, 2) gloo meshes
-    against one process;
+    against one process, qwen3-0.6b's prefill logits and KV cache there,
+    and heads that 'model' does not divide on (1, 2);
     their gradients at ``tests/test_torch_train.py``'s rtol 1e-3, atol
     1e-4 of each leaf's largest magnitude.
 
 A fake world (``"fake"`` backend) and a gloo world each run in child
 processes, so no default group leaks into the next test of a worker.
 """
+import ast
 import functools
 import json
 import os
@@ -74,9 +80,9 @@ def _env():
                 OMP_NUM_THREADS="1")
 
 
-def _in_world(world: int, body: str, timeout: int = 240) -> dict:
+def _spawn_world(world: int, body: str) -> subprocess.Popen:
     """``body`` as rank 0 of a fake world of ``world`` ranks in a child
-    process; it prints one JSON line."""
+    process, started; it prints one JSON line (``_read``)."""
     code = textwrap.dedent(f"""
         import json
         import logging
@@ -87,10 +93,20 @@ def _in_world(world: int, body: str, timeout: int = 240) -> dict:
         logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
         logging.getLogger("torch._logging").setLevel(logging.ERROR)
     """) + textwrap.dedent(body)
-    out = subprocess.run([sys.executable, "-c", code], env=_env(),
-                         capture_output=True, text=True, timeout=timeout)
-    assert out.returncode == 0, out.stderr[-4000:]
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, "-c", code], env=_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _read(proc: subprocess.Popen, timeout: int = 240) -> dict:
+    """The JSON line a child process printed last."""
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-4000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _in_world(world: int, body: str, timeout: int = 240) -> dict:
+    return _read(_spawn_world(world, body), timeout)
 
 
 def _sds(t):
@@ -465,10 +481,169 @@ def test_recurrent_families_count_alike_over_pod_and_data():
         assert three == two, arch
 
 
+# -- the per-rank work at full width, against the reference's compiled count -
+
+#: (arch, layers, shape): full-width configs cut in depth (zamba2-7b to one
+#: attn_every period, rwkv6-3b to one layer), whose per-rank work a layer
+#: is the full models'
+DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k"), ("zamba2-7b", 6, "prefill_32k"),
+             ("rwkv6-3b", 1, "train_4k"), ("zamba2-7b", 6, "train_4k"))
+
+_REFERENCE_COUNT = """
+import dataclasses, json, sys
+from repro import configs
+from repro.launch import dryrun
+from repro.launch.mesh import make_production_mesh
+from repro.roofline.analysis import HW, roofline_report
+out = {}
+for arch, layers, shape, multi_pod in json.loads(sys.argv[1]):
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    dryrun.get_config = lambda name, cfg=cfg: cfg
+    compiled, aux = dryrun.lower_cell(
+        arch, shape, make_production_mesh(multi_pod=multi_pod))
+    out[f"{arch}/{shape}/{multi_pod}"] = roofline_report(
+        compiled, HW(), chips=aux["chips"])["hlo_flops_per_device"]
+print(json.dumps(out))
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def _depth_cut_counts() -> dict:
+    """Per-rank FLOPs of the ``DEPTH_CUT`` cells on (16, 16) and, for the
+    train cells, (2, 16, 16): the port's traced as rank 0 of fake worlds of
+    256 and 512 ranks, the reference's ``hlo_flops_per_device`` compiled
+    on 512 forced host devices (``lower_cell`` with the depth-cut config
+    in place of the registry's; nothing is written). The four children
+    run at once."""
+    def port(multi_pod):
+        cells = [c for c in DEPTH_CUT if not multi_pod or c[2] == "train_4k"]
+        return _spawn_world(512 if multi_pod else 256, f"""
+            import dataclasses
+            from repro_torch.configs import SHAPES, get_config
+            from repro_torch.launch.dryrun import _lower
+            from repro_torch.launch.mesh import make_production_mesh
+            mesh = make_production_mesh(multi_pod={multi_pod},
+                                        torch_device="cpu")
+            out = {{}}
+            for arch, layers, shape in {cells!r}:
+                cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+                traced, _, _ = _lower(cfg, SHAPES[shape], mesh)
+                out[f"{{arch}}/{{shape}}/{multi_pod}"] = traced.cost.flops
+            print(json.dumps(out))
+        """)
+
+    def reference(arch):
+        cells = [(a, n, s, mp) for a, n, s in DEPTH_CUT if a == arch
+                 for mp in ((False, True) if s == "train_4k" else (False,))]
+        env = dict(_env(), XLA_FLAGS="--xla_force_host_platform_device_count"
+                                     "=512")
+        return subprocess.Popen(
+            [sys.executable, "-c", _REFERENCE_COUNT, json.dumps(cells)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    procs = {"port": [port(False), port(True)],
+             "reference": [reference("rwkv6-3b"), reference("zamba2-7b")]}
+    return {k: {c: n for p in ps for c, n in _read(p, 600).items()}
+            for k, ps in procs.items()}
+
+
+def _chip_smoke_depth_cut() -> dict:
+    """chip_smoke.py's ``DRYRUN_DEPTH_CUT`` (the reference's counts the
+    card's gate holds the port to), read from its source, which imports
+    CUDA-only code: {arch/shape: reference FLOPs a rank}."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    value, = (n.value for n in tree.body if isinstance(n, ast.Assign)
+              and [getattr(t, "id", None) for t in n.targets]
+              == ["DRYRUN_DEPTH_CUT"])
+    return {f"{a}/{s}": ref for a, _, s, ref in ast.literal_eval(value)}
+
+
+@pytest.mark.parametrize("arch,layers,shape", DEPTH_CUT)
+def test_depth_cut_cells_do_the_references_work_a_rank(arch, layers, shape):
+    """zamba2-7b's and rwkv6-3b's per-rank FLOPs at full width, cut in
+    depth, on both production meshes: at most 1.5x (and at least half)
+    the reference's, and a train step's halving from (16, 16) to (2, 16,
+    16) with the batch it splits. chip_smoke.py's copy of the reference's
+    count for a cell it gates is the count measured here."""
+    got = _depth_cut_counts()
+    meshes = (False, True) if shape == "train_4k" else (False,)
+    for multi_pod in meshes:
+        key = f"{arch}/{shape}/{multi_pod}"
+        port, ref = got["port"][key], got["reference"][key]
+        assert 0.5 * ref <= port <= 1.5 * ref, (key, port, ref)
+    copied = _chip_smoke_depth_cut().get(f"{arch}/{shape}")
+    if copied is not None:
+        assert copied == got["reference"][f"{arch}/{shape}/False"]
+    if shape == "train_4k":
+        port = got["port"]
+        ratio = port[f"{arch}/{shape}/True"] / port[f"{arch}/{shape}/False"]
+        assert 0.49 <= ratio <= 0.52, ratio
+
+
+def _record(directory, arch, shape, mesh, flops, coll):
+    os.makedirs(directory, exist_ok=True)
+    rec = {"arch": arch, "shape": shape, "mesh": mesh, "roofline": {
+        "hlo_flops_per_device": flops, "collective_bytes_per_device": coll,
+        "t_compute_s": flops / 989e12, "t_memory_s": 0.5,
+        "t_collective_s": coll / 450e9, "useful_flops_ratio": 0.25},
+        "memory": {"argument_size_in_bytes": 2**30,
+                   "temp_size_in_bytes": 2**31}}
+    with open(os.path.join(directory, f"{arch}__{shape}__{mesh}.json"),
+              "w") as f:
+        json.dump(rec, f)
+
+
+def test_dryrun_vs_reference_reads_both_packages_records(tmp_path):
+    """``scripts/torch/dryrun_vs_reference.py``: each cell's per-rank FLOPs
+    against the reference's record of the same cell and mesh, and against
+    an earlier run of the port."""
+    import importlib.util
+    path = ROOT / "scripts" / "torch" / "dryrun_vs_reference.py"
+    spec = importlib.util.spec_from_file_location("dryrun_vs_reference", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    port, ref, base = (str(tmp_path / d) for d in ("port", "ref", "base"))
+    _record(port, "rwkv6-3b", "train_4k", "16x16", 3e14, 2e9)
+    _record(port, "rwkv6-3b", "train_4k", "2x16x16", 1.5e14, 1e9)
+    _record(ref, "rwkv6-3b", "train_4k", "16x16", 1e14, 5e9)
+    _record(base, "rwkv6-3b", "train_4k", "16x16", 6e14, 4e9)
+    row, = mod.main(["--port", port, "--reference", ref,
+                     "--baseline", base])
+    assert (row["arch"], row["shape"]) == ("rwkv6-3b", "train_4k")
+    assert row["16x16"]["over_reference"] == 3.0
+    assert row["16x16"]["flops_over_baseline"] == 0.5
+    assert row["16x16"]["collectives_over_baseline"] == 0.5
+    assert row["2x16x16"]["over_reference"] is None
+    assert row["16x16"]["gib"] == [1.0, 2.0]
+    assert mod.table([row]).splitlines()[2].startswith(
+        "| rwkv6-3b x train_4k | 1.00 / 2.00 | 303.3 / 500.0 / 4.4 | 0.250 "
+        "| 3.000 | 0.500, 0.500 | 1.00 / 2.00 |")
+
+
+def test_dryrun_split_attributes_every_flop():
+    """``scripts/torch/dryrun_split.py``: a cell's per-rank FLOPs split by
+    op, autograd node and model line add up to the cell's count."""
+    path = ROOT / "scripts" / "torch" / "dryrun_split.py"
+    got = _in_world(256, f"""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location("dryrun_split",
+                                                      {str(path)!r})
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        cost, flops = mod.split("rwkv6-3b", "decode_32k", 1, 256)
+        (op, node, site, _), n = flops.most_common(1)[0]
+        print(json.dumps({{"total": cost.flops, "sum": sum(flops.values()),
+                           "top": [op, node, site, n]}}))
+    """)
+    assert got["sum"] == got["total"] > 0
+    op, node, site, n = got["top"]
+    assert (op, node) == ("mm.default", "fwd") and site.startswith("rwkv6")
+
+
 # -- a gloo world: MoE's F slices and the dense model across real ranks -------
 
 _GLOO = """
-import json, sys
+import contextlib, json, sys
 import torch
 import torch.distributed as dist
 rank, world, port, pods = map(int, sys.argv[1:5])
@@ -526,17 +701,33 @@ res = {"mesh": list(mesh.sizes),
 
 # reduced models on a mesh of processes against one process: the
 # constraints, per-rank attention, recurrences, conv and vocab-parallel
-# CE, gradients partial over the data axis; then decode steps on a
-# sequence-sharded cache
-def models_on(m):
+# CE, gradients partial over the data axis; prefill's logits and cache;
+# then decode steps on a sequence-sharded cache
+MODELS = [(a, a, {}) for a in ("qwen3-0.6b", "hubert-xlarge", "zamba2-7b",
+                               "rwkv6-3b")]
+# the dense families' other attention options on the two-axis worlds: qkv
+# biases (qwen2-1.5b, chatglm3-6b) and rope on half the head dims
+# (chatglm3-6b)
+DENSE = [(a, a, {}) for a in ("qwen2-1.5b", "chatglm3-6b")]
+# heads that 'model' = 2 does not divide: 5 RWKV heads (3 and 2 a rank),
+# 5 Mamba heads (in_proj's 357 columns replicated), 1 KV head (read by
+# both ranks, cached by rank 0); and an MLP width it does not divide (255:
+# every rank runs the whole MLP)
+UNEVEN = [("rwkv6-3b/5-heads", "rwkv6-3b", {"d_model": 160}),
+          ("zamba2-7b/5-heads", "zamba2-7b", {"d_model": 80, "d_ff": 192}),
+          ("qwen3-0.6b/1-kv-head", "qwen3-0.6b", {"n_kv_heads": 1}),
+          ("qwen2-1.5b/odd-ff", "qwen2-1.5b", {"d_ff": 255})]
+
+
+def models_on(m, cases):
     from repro_torch.configs import get_config
     from repro_torch.distributed import cache_shardings, param_shardings
     from repro_torch.distributed.sharding import batch_spec, place_tree
     from repro_torch.models import build
     from repro_torch.pytree import leaves, unflatten
     out = {}
-    for arch in ("qwen3-0.6b", "hubert-xlarge", "zamba2-7b", "rwkv6-3b"):
-        cfg = get_config(arch).reduced()
+    for name, arch, overrides in cases:
+        cfg = get_config(arch).reduced(**overrides)
         model = build(cfg)
         params = model.init(torch.Generator().manual_seed(0), "cpu")
         g = torch.Generator().manual_seed(1)
@@ -564,6 +755,15 @@ def models_on(m):
                    full(a), b, rtol=1e-3,
                    atol=1e-4 * float(b.abs().max()) + 1e-12))
                    for a, b in zip(d_grads, grads))}
+        if cfg.has_decode and model.prefill is not None:
+            with torch.no_grad():
+                want = model.prefill(params, {"tokens": batch["tokens"]})
+                with activate_mesh(m):
+                    have = model.prefill(placed, {"tokens": pb["tokens"]})
+            row["prefill_close"] = [bool(torch.allclose(
+                full(a), b, rtol=1e-4, atol=1e-5)) for a, b in (
+                    (have[0], want[0]), (have[1]["k"], want[1]["k"]),
+                    (have[1]["v"], want[1]["v"]))]
         if cfg.has_decode:
             cache = model.init_cache(2, 16, torch_device="cpu")
             d_cache = place_tree(cache, cache_shardings(m, cfg, cache, 2))
@@ -578,12 +778,85 @@ def models_on(m):
                                 m, batch_spec(m, 1, 2)).place(tok))
                     row["decode_close"].append(bool(torch.allclose(
                         full(d_logits), logits, rtol=1e-4, atol=1e-5)))
-        out[arch] = row
+        out[name] = row
     return out
 
 
+# RWKV-6's mixes and head for one sequence on (2, 1, 2): 'pod' and 'data'
+# cannot split a batch of one, so they split the products' contracted
+# channels (rwkv6._Ranks), against one process
+def one_sequence(m):
+    from repro_torch.models import rwkv6
+    gen = torch.Generator().manual_seed(2)
+    d, hd = 64, 16
+    tm = rwkv6.init_rwkv_tmix(gen, d, hd)
+    cm = rwkv6.init_rwkv_cmix(gen, d, 128)
+    head = torch.randn((d, 256), generator=gen)
+    x = torch.randn((1, 8, d), generator=gen)
+    state = {"x": torch.randn((1, 1, d), generator=gen),
+             "S": 0.1 * torch.randn((1, d // hd, hd, hd), generator=gen)}
+    cot = [torch.randn((1, 8, d), generator=gen) for _ in range(2)]
+    col, row = (None, "model"), ("model", None)
+    specs = {"Wr": col, "Wk": col, "Wv": col, "Wg": col, "wA": col,
+             "Wo": row}
+    c_specs = {"Wk": col, "Wr": col, "Wv": row}
+
+    def run(place, ctx):
+        tp = {k: place(v, specs.get(k, (None,) * v.dim())).requires_grad_()
+              for k, v in tm.items()}
+        cp = {k: place(v, c_specs.get(k, (None,) * v.dim())).requires_grad_()
+              for k, v in cm.items()}
+        xi = place(x, (None,) * 3).requires_grad_()
+        with ctx():
+            yt, _ = rwkv6.apply_rwkv_tmix(tp, xi, head_dim=hd)
+            yc, _ = rwkv6.apply_rwkv_cmix(cp, xi)
+            loss = ((yt * place(cot[0], (None,) * 3)).sum()
+                    + (yc * place(cot[1], (None,) * 3)).sum())
+            grads = torch.autograd.grad(full(loss), [xi, *tp.values(),
+                                                     *cp.values()])
+            with torch.no_grad():
+                ys, st = rwkv6.decode_rwkv_tmix(
+                    tp, xi[:, :1], {k: place(v, (None,) * v.dim())
+                                    for k, v in state.items()}, hd)
+                h = xi[:, -1]
+                w = place(head, col)
+                logits = rwkv6.head_logits(h, w)
+        return ([full(t).detach() for t in (yt, yc, ys, st["S"], logits)],
+                [full(g) for g in grads])
+    want = run(lambda t, s: t.clone(), contextlib.nullcontext)
+    got = run(lambda t, s: NamedSharding(m, s).place(t.clone()),
+              lambda: activate_mesh(m))
+    return {"outputs_close": [bool(torch.allclose(a, b, rtol=1e-4,
+                                                  atol=1e-5))
+                              for a, b in zip(got[0], want[0])],
+            "grads_close": [bool(torch.allclose(
+                a, b, rtol=1e-3, atol=1e-4 * float(b.abs().max()) + 1e-12))
+                for a, b in zip(got[1], want[1])]}
+
+
 res["models"] = models_on(remesh(list(range(world)), 2, pods=pods,
-                                  torch_device="cpu"))
+                                  torch_device="cpu"), MODELS)
+if pods == 2:
+    res["one_sequence"] = one_sequence(remesh(list(range(world)), 2,
+                                              pods=pods, torch_device="cpu"))
+else:
+    res["models"].update(models_on(remesh(list(range(world)), 2,
+                                          torch_device="cpu"), DENSE))
+if world == 2:
+    res["uneven"] = models_on(remesh(list(range(world)), 2,
+                                     torch_device="cpu"), UNEVEN)
+    # a train step's temp bytes on each rank: op_cost's count and the CPU
+    # allocator's peak over a plain step (scripts/torch/temp_vs_allocator.py)
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "temp_vs_allocator", "scripts/torch/temp_vs_allocator.py")
+    tva = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tva)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, tva.peaks_on(
+        remesh(list(range(world)), 2, torch_device="cpu"), "qwen3-0.6b",
+        8, 256, 4))
+    res["peaks"] = peaks
 res["models_mesh"] = list(remesh(list(range(world)), 2, pods=pods,
                                  torch_device="cpu").sizes)
 if rank == 0:
@@ -603,8 +876,9 @@ def _gloo_world(world: int, pods: int = 1) -> dict:
     port = _free_port()
     procs = [subprocess.Popen([sys.executable, "-c", _GLOO, str(r),
                                str(world), str(port), str(pods)], env=_env(),
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(world)]
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
     outs = [p.communicate(timeout=240) for p in procs]
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-4000:]
@@ -633,6 +907,66 @@ def test_models_across_gloo_ranks(arch, world):
     assert got["grads_close"]
     if configs.get_config(arch).has_decode:
         assert got["decode_close"] == [True] * 3
+
+
+@pytest.mark.parametrize("world", [(2,), (4,), (4, 2)])
+def test_prefill_across_gloo_ranks(world):
+    """Reduced qwen3-0.6b's prefill on (1, 2), (2, 2) and (2, 1, 2) meshes
+    of processes (the worlds above): its last logits and its KV cache
+    (each rank's share of the KV heads) against one process."""
+    got = _gloo_world(*world)["models"]["qwen3-0.6b"]
+    assert got["prefill_close"] == [True] * 3
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "chatglm3-6b"])
+def test_bias_and_partial_rope_across_gloo_ranks(arch, world):
+    """The per-rank attention's qkv biases (each rank adds its own heads'
+    shares) and chatglm3-6b's rope on half the head dims, on (1, 2) and
+    (2, 2) meshes of processes against one process: loss, gradients,
+    prefill's logits and KV cache, and decode, within the bounds above."""
+    got = _gloo_world(world)["models"][arch]
+    plain, meshed = got["loss"]
+    assert np.isclose(meshed, plain, rtol=RTOL, atol=ATOL)
+    assert got["grads_close"]
+    assert got["prefill_close"] == [True] * 3
+    assert got["decode_close"] == [True] * 3
+
+
+def test_peak_bytes_follow_the_allocator_across_gloo_ranks():
+    """On a (1, 2) mesh of processes, with its collectives, op_cost's peak
+    bytes of a train step (reduced qwen3-0.6b at 8 layers, batch 4 x 256)
+    follow each rank's CPU allocator over the same step run plainly
+    within 1%, as they do in one process (test_torch_roofline.py)."""
+    for rank in _gloo_world(2)["peaks"]:
+        assert rank["allocator"] > 0
+        assert rank["op_cost"] == pytest.approx(rank["allocator"], rel=0.01)
+
+
+@pytest.mark.parametrize("case", ["rwkv6-3b/5-heads", "zamba2-7b/5-heads",
+                                  "qwen3-0.6b/1-kv-head",
+                                  "qwen2-1.5b/odd-ff"])
+def test_uneven_head_shares_across_gloo_ranks(case):
+    """Heads (or an MLP width) that 'model' does not divide, on a (1, 2)
+    mesh of processes against one process: each rank runs its own whole
+    heads (3 and 2 of 5; rank 1 no KV head of its own), or the whole MLP,
+    within the bounds above."""
+    got = _gloo_world(2)["uneven"][case]
+    plain, meshed = got["loss"]
+    assert np.isclose(meshed, plain, rtol=RTOL, atol=ATOL)
+    assert got["grads_close"]
+    assert got["decode_close"] == [True] * 3
+    assert got.get("prefill_close", [True] * 3) == [True] * 3
+
+
+def test_one_sequence_splits_the_contraction_across_gloo_ranks():
+    """RWKV-6's time and channel mixes (outputs and every gradient), one
+    decode step and the head for a batch of one on a (2, 1, 2) mesh of
+    processes, whose 'pod' axis then splits the products' contracted
+    channels, against one process."""
+    got = _gloo_world(4, 2)["one_sequence"]
+    assert got["outputs_close"] == [True] * 5
+    assert got["grads_close"] == [True] * 21      # x and 20 parameters
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "hubert-xlarge", "zamba2-7b",

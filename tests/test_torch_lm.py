@@ -372,6 +372,22 @@ def test_synthetic_batches_bitwise(vocab, seq, batch, shards):
 
 # -- serving -----------------------------------------------------------------
 
+def test_serve_cuts_the_depth_and_keeps_the_widths(monkeypatch, capsys):
+    built, real = [], serve_lm.build
+    monkeypatch.setattr(serve_lm, "build",
+                        lambda cfg: built.append(cfg) or real(cfg))
+    out = serve_lm.serve("qwen3-0.6b", batch=1, prompt_len=4, gen=2,
+                         torch_device="cpu", n_layers=1)
+    serve_lm.main(["--arch", "rwkv6-3b", "--layers", "1", "--batch", "1",
+                   "--prompt-len", "4", "--gen", "2", "--torch-device",
+                   "cpu"])
+    assert "tok/s), sample:" in capsys.readouterr().out
+    assert out["generated"].shape == (1, 2)
+    assert built == [dataclasses.replace(
+        configs.get_config(arch).reduced(), n_layers=1)
+        for arch in ("qwen3-0.6b", "rwkv6-3b")]
+
+
 def test_serve_runs_on_the_cpu_and_the_shim_warns(capsys):
     out = serve_lm.serve("qwen3-0.6b", batch=2, prompt_len=16, gen=4,
                          torch_device="cpu")
