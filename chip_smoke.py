@@ -2860,9 +2860,13 @@ DRYRUN_ISING = "chip64"
 #: ``repro.launch.dryrun.lower_cell`` with the cut config, compiled on 512
 #: forced host devices; tests/test_torch_dryrun.py measures it): (arch,
 #: layers, shape, reference FLOPs a rank). The port's count must stay
-#: within DRYRUN_CUT_MIN-DRYRUN_CUT_MAX of it.
+#: within DRYRUN_CUT_MIN-DRYRUN_CUT_MAX of it. A pair of depths (lo, hi)
+#: counts the layers between them, count(hi) - count(lo): one sequence's
+#: decode, whose count the head decides at any depth (XLA runs the
+#: reference's head whole on every rank).
 DRYRUN_DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k", 719_250_195_496.0),
-                    ("zamba2-7b", 6, "train_4k", 25_253_469_056_684.0))
+                    ("zamba2-7b", 6, "train_4k", 25_253_469_056_684.0),
+                    ("rwkv6-3b", (1, 2), "long_500k", 884_194.0))
 DRYRUN_CUT_MIN, DRYRUN_CUT_MAX = 0.5, 1.5
 #: the full-width step phase train measured, for phase dryrun's count
 REAL_STEP = {}
@@ -3347,7 +3351,8 @@ def dryrun_world_cells() -> list:
     """``run_cell`` / ``run_ising_cell`` as rank 0 of a fake world of 256
     ranks on the card, in a child Python (one process holds one world):
     one record a cell; then one a ``DRYRUN_DEPTH_CUT`` cell (its per-rank
-    FLOPs and collective bytes, keyed ``depth_cut``)."""
+    FLOPs and collective bytes, keyed ``depth_cut``; for a pair of depths
+    the layers' between them)."""
     code = "\n".join([
         "import dataclasses, json, logging, sys, time",
         f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})",
@@ -3373,11 +3378,16 @@ def dryrun_world_cells() -> list:
         "    t0 = time.perf_counter()",
         "    rec = {'depth_cut': arch, 'layers': layers, 'shape': shape}",
         "    try:",
-        "        traced, _, _ = dryrun._lower(dataclasses.replace(get_config("
-        "arch), n_layers=layers), SHAPES[shape], make_production_mesh("
+        "        depths = layers if isinstance(layers, tuple) else (layers,)",
+        "        flops = coll = 0",
+        "        for sign, n in zip((-1, 1)[-len(depths):], depths):",
+        "            traced, _, _ = dryrun._lower(dataclasses.replace("
+        "get_config(arch), n_layers=n), SHAPES[shape], make_production_mesh("
         "torch_device='cuda'))",
-        "        rec.update(flops=traced.cost.flops, collective_bytes=sum("
-        "traced.cost.collectives.values()), trace_s=time.perf_counter() - t0)",
+        "            flops += sign * traced.cost.flops",
+        "            coll += sign * sum(traced.cost.collectives.values())",
+        "        rec.update(flops=flops, collective_bytes=coll,"
+        " trace_s=time.perf_counter() - t0)",
         "    except Exception as e:",
         "        traceback.print_exc()",
         "        failed = 1",
@@ -3400,8 +3410,9 @@ def dryrun_world_cells() -> list:
 def phase_dryrun():
     """The multi-pod dry-run on the card's torch (no kernel: the
     reference's dry-run lowers plain JAX). (1) Three cells traced in a
-    fake world of 256 ranks on the card's device type, and two full-width
-    cells cut in depth (``DRYRUN_DEPTH_CUT``), whose per-rank FLOPs must
+    fake world of 256 ranks on the card's device type, and three full-width
+    cells cut in depth (``DRYRUN_DEPTH_CUT``; one counts the layers
+    between two depths), whose per-rank FLOPs must
     stay within ``DRYRUN_CUT_MIN``-``DRYRUN_CUT_MAX`` of the reference's.
     (2) qwen3-0.6b at
     full width with phase train's batch traced on the card's (1, 1) host

@@ -105,15 +105,23 @@ def _gloo_rank(rank: int, port: int, a) -> None:
     dist.destroy_process_group()
 
 
-def _fake_rank(a) -> None:
+def fake_peak(arch: str, layers: int, seq: int, batch: int) -> int:
+    """``op_cost``'s count of one train step traced as the dry-run traces
+    it, on meta tensors; this process must be rank 0 of a ``"fake"``
+    world of two."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import remesh
-    from repro_torch.launch.dryrun import _lower, init_fake_world
-    init_fake_world(2)
-    traced, _, _ = _lower(_cfg(a.arch, a.layers),
-                          ShapeConfig("t", a.seq, a.batch, "train"),
+    from repro_torch.launch.dryrun import _lower
+    traced, _, _ = _lower(_cfg(arch, layers),
+                          ShapeConfig("t", seq, batch, "train"),
                           remesh([0, 1], 2, torch_device="cpu"))
-    print(json.dumps(int(traced.cost.peak_bytes)))
+    return int(traced.cost.peak_bytes)
+
+
+def _fake_rank(a) -> None:
+    from repro_torch.launch.dryrun import init_fake_world
+    init_fake_world(2)
+    print(json.dumps(fake_peak(a.arch, a.layers, a.seq, a.batch)))
 
 
 def _free_port() -> int:

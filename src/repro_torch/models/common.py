@@ -171,15 +171,17 @@ def psum_scatter(t, mesh, axes: tuple, dim: int):
 
 def gather(t, mesh, s: tuple, dim: int, shape, *, split=True):
     """This rank's ``t``, laid out as spec ``s`` (which splits dimension
-    ``dim`` over 'model') in a tensor of global ``shape``, whole along
-    ``dim`` on every rank of a model group (an all-gather). Where the
-    model group's ranks use the whole for their own shares of the work
-    (``split``), the gradient is the ranks' sum, of which each keeps its
-    own slice (a reduce-scatter); else each keeps its slice of its own."""
+    ``dim`` over 'model', or over other mesh axes) in a tensor of global
+    ``shape``, whole along ``dim`` on every rank of those axes (an
+    all-gather). Where ranks use the whole for their own shares of the
+    work (``split``: True for 'model', or the axes whose ranks do), the
+    gradient is those ranks' sum, of which each keeps its own slice (a
+    reduce-scatter); else each keeps its slice of its own."""
     whole = list(s)
     whole[dim] = None
     return local_shard(from_local(t, mesh, s, shape), mesh, spec(*whole),
-                       split=(MODEL_AXIS,) if split else False)
+                       split=(MODEL_AXIS,) if split is True else (
+                           tuple(split) if split else False))
 
 
 def whole(t, mesh, split: tuple = ()):

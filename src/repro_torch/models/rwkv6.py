@@ -127,9 +127,10 @@ class _Ranks:
     entry). A batch the batch axes divide is split over them (``batch``;
     ``rows`` the spec of a (B, S, D) activation). One they do not divide
     (a single sequence decoding) is whole on every rank, and the batch
-    axes split the products' contracted channels instead (``kax``; ``k``
-    their spec entry), as XLA partitions the reference's decode of one
-    sequence."""
+    axes split the column-parallel products' contracted channels instead
+    (``kax``; ``k`` their spec entry), and the row-parallel products'
+    output channels (``rmm``), as XLA partitions the reference's decode
+    of one sequence."""
 
     def __init__(self, mesh, batch: int, *dims):
         self.mesh = mesh
@@ -165,15 +166,33 @@ class _Ranks:
 
     def part(self, w, s):
         """The parameter ``w`` laid out as spec ``s``; its gradient partial
-        over the batch axes that split the rows."""
-        return local_shard(w, self.mesh, s, split=self.batch)
+        over the batch axes that split the rows, or, as ``kax``, the
+        row-parallel products' output channels."""
+        return local_shard(w, self.mesh, s, split=self.batch + self.kax)
 
-    def mm(self, a, w):
+    def mm(self, a, w, split: bool = False):
         """``a`` (its contracted channels) by this rank's columns of the
         column-parallel ``w`` (cast to ``a``'s dtype), summed over
-        ``kax``."""
+        ``kax``, whose ranks use the sum for their own shares of the work
+        (their output channels of a row-parallel product further on)
+        where ``split``."""
         return psum(a @ self.part(w, (self.k, self.cols)).to(a.dtype),
-                    self.mesh, self.kax)
+                    self.mesh, self.kax, split=split)
+
+    def rmm(self, a, w, own: bool = False):
+        """``a`` (this rank's channels) by this rank's rows of the
+        row-parallel ``w``, the partial sums added over 'model': every
+        output channel, or with ``own`` this rank's (a reduce-scatter).
+        Over ``kax`` each rank computes its share of the output channels,
+        and the shares, summed over 'model', are gathered."""
+        y = a @ self.part(w, (self.cols, self.k)).to(a.dtype)
+        if not self.kax:
+            return (psum_scatter(y, self.mesh, self.cm, 2) if own else
+                    psum(y, self.mesh, self.cm))
+        y = gather(psum(y, self.mesh, self.cm), self.mesh,
+                   (None, None, self.k), 2, y.shape[:2] + (w.shape[1],),
+                   split=own and self.cm)
+        return self.own_cols(y) if own else y
 
     def gather_cols(self, t, batch, split=True):
         """(B_l, S, D / tp) this rank's channels -> every channel, which
@@ -207,7 +226,10 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     channels for the gate and the row-parallel Wo, whose partial sums are
     all-reduced. A decode state's heads are split only where its spec
     splits them (the decode cache of 40 heads is replicated on 16 ranks,
-    and a split would gather the new state each step)."""
+    and a split would gather the new state each step). Where the batch
+    axes split the contractions (one sequence) they also split Wo's
+    output channels, and every gradient before Wo is partial over
+    them."""
     mesh = process_mesh()
     b, s, d = x.shape
     h = d // head_dim
@@ -217,8 +239,10 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     def mix(name):
         return _mix(xf, xsf, rk.vec(p[name]))
     col = (None, rk.cols)
-    r, k, v, g = (rk.mm(mix("mu_" + n), p["W" + n]) for n in "rkvg")
-    a = rk.gather_cols(torch.tanh(rk.mm(mix("mu_w"), p["wA"])), b)
+    r, k, v, g = (rk.mm(mix("mu_" + n), p["W" + n], split=True)
+                  for n in "rkvg")
+    a = rk.gather_cols(torch.tanh(rk.mm(mix("mu_w"), p["wA"], split=True)),
+                       b)
     wraw = rk.part(p["w0"], (rk.cols,)) + a @ rk.part(p["wB"], col)
     logw = -torch.exp(torch.clamp(wraw, max=WRAW_CLAMP))  # <= -0 per channel
 
@@ -229,7 +253,8 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     if split:
         r, k, v, logw = (t[..., h0 * head_dim:h1 * head_dim]
                          for t in (r, k, v, logw))
-    u = own_part(p["u"], mesh, 0, h0, h1, rk.batch + (rk.cm if split else ()))
+    u = own_part(p["u"], mesh, 0, h0, h1,
+                 rk.batch + rk.kax + (rk.cm if split else ()))
     hs = (rk.rows[0], "model" if split else None, None, None)
     if S0 is None:
         y, S = _wkv_chunked(r, k, v, logw, u, head_dim)
@@ -242,8 +267,7 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
         y = gather_heads(y, mesh, 2, h, b, rk.rows[0])
     y = rk.own_cols(y.flatten(2)) * rk.part(p["ln_w"], (rk.cols,))[
         None, None, :]
-    y = y * F.silu(g)
-    y = psum(y @ rk.part(p["Wo"], (rk.cols, None)), mesh, rk.cm).to(x.dtype)
+    y = rk.rmm(y * F.silu(g), p["Wo"]).to(x.dtype)
     return (from_local(y, mesh, rk.rows, (b, s, d)),
             (x[:, -1:], from_local(S, mesh, hs,
                                    (b, h, head_dim, head_dim))))
@@ -258,16 +282,17 @@ def apply_rwkv_cmix(p, x, x_prev=None):
     """x (B, S, D) -> (y, last_x). On a mesh of processes each rank runs it
     on its own batch rows and its own columns of the column-parallel Wk /
     Wr (rows of the row-parallel Wv): the partial sums of the Wv product
-    are reduce-scattered to the rank's channels, gated by its own r, and
-    the result gathered whole."""
+    are reduce-scattered to the rank's channels (for one sequence, each
+    rank's share of its output channels), gated by its own r, and the
+    result gathered whole."""
     mesh = process_mesh()
     b, s, d = x.shape
     rk = _Ranks(mesh, b, d, p["Wk"].shape[1])
     xf, xsf = rk.x(x, x_prev)
-    k = rk.mm(_mix(xf, xsf, rk.vec(p["mu_k"])), p["Wk"])
+    k = rk.mm(_mix(xf, xsf, rk.vec(p["mu_k"])), p["Wk"], split=True)
     r = rk.mm(_mix(xf, xsf, rk.vec(p["mu_r"])), p["Wr"])
-    kv = torch.square(F.relu(k)) @ rk.part(p["Wv"], (rk.cols, None))
-    out = (psum_scatter(kv, mesh, rk.cm, 2) * torch.sigmoid(r)).to(x.dtype)
+    kv = rk.rmm(torch.square(F.relu(k)), p["Wv"], own=True)
+    out = (kv * torch.sigmoid(r)).to(x.dtype)
     return from_local(rk.gather_cols(out, b, split=False), mesh, rk.rows,
                       (b, s, d)), x[:, -1:]
 

@@ -25,10 +25,15 @@ eager has no HLO, so the port counts what actually executes).
          a storage counts once, from the op that allocated it (a result
          that is not a view and shares no input's storage) until the
          storage itself is freed (a ``weakref`` finalizer on it), however
-         many tensors alias it and whichever of them lives longest. The
-         arguments ``fn`` was given are not included; the step's own
-         outputs (a train step's new state) are. This follows the
-         allocator's count of the run's bytes.
+         many tensors alias it and whichever of them lives longest. A
+         functional collective's wrapper (``_wrap_tensor_autograd``,
+         ``wait_tensor``) returns its input's storage on a real rank; on
+         meta tensors its kernel returns a fresh one and lets the input
+         go, so there the bytes move to the wrapper's result, which a
+         real rank holds as the collective's. The arguments ``fn`` was
+         given are not included; the step's own outputs (a train step's
+         new state) are. This follows the allocator's count of the run's
+         bytes.
 
 Counts are per process, which on DTensors is per rank: the recorder
 declines the ops whose arguments are DTensors, so it counts the local
@@ -64,10 +69,14 @@ _VIEWS = (torch.ops.aten._unsafe_view,)
 _WRAPPERS = ("wait_tensor", "_wrap_tensor_autograd")
 
 
+def _is_wrapper(func) -> bool:
+    return (func.namespace == "_c10d_functional" and
+            func.__name__.split(".")[0] in _WRAPPERS)
+
+
 def _is_view(func) -> bool:
-    return (func.is_view or func.overloadpacket in _VIEWS or (
-        func.namespace == "_c10d_functional" and
-        func.__name__.split(".")[0] in _WRAPPERS))
+    return (func.is_view or func.overloadpacket in _VIEWS or
+            _is_wrapper(func))
 
 
 @dataclasses.dataclass
@@ -143,7 +152,7 @@ class _Record(TorchDispatchMode):
         super().__init__()
         self.cost = cost
         self.live = 0
-        self.counted = weakref.WeakSet()      # storages counted so far
+        self.counted = weakref.WeakKeyDictionary()  # storage -> finalizer
         self.inner = 0
         self.dtensor, self.fake = _subclass_types()
 
@@ -154,6 +163,9 @@ class _Record(TorchDispatchMode):
         """The storages ``func`` allocated for ``outs`` live until freed.
         A view's, an in-place result's and an ``out=`` result's storage is
         an input's, counted where it was allocated (or an argument's)."""
+        if _is_wrapper(func):
+            self._move(ins, outs)
+            return
         if _is_view(func):
             return
         theirs = {id(t.untyped_storage()) for t in ins}
@@ -162,10 +174,26 @@ class _Record(TorchDispatchMode):
             if id(st) in theirs or st in self.counted:
                 continue
             n = st.nbytes()
-            self.counted.add(st)
             self.live += n
-            weakref.finalize(st, self._free, n)
+            self.counted[st] = weakref.finalize(st, self._free, n)
         self.cost.peak_bytes = max(self.cost.peak_bytes, self.live)
+
+    def _move(self, ins, outs) -> None:
+        """A collective's wrapper moves no data: where its result is a
+        plain tensor on another storage (the meta kernel's
+        ``empty_like``), the bytes counted for the input's storage follow
+        the result's. A real rank's ``AsyncCollectiveTensor`` wraps the
+        input itself."""
+        for i, o in zip(ins, outs):
+            if type(o) is not torch.Tensor:
+                continue
+            src, dst = i.untyped_storage(), o.untyped_storage()
+            fin = self.counted.get(src)
+            if dst is src or dst in self.counted or fin is None or \
+                    not fin.alive:
+                continue
+            _, _, (n,), _ = fin.detach()
+            self.counted[dst] = weakref.finalize(dst, self._free, n)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}

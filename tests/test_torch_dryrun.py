@@ -485,9 +485,16 @@ def test_recurrent_families_count_alike_over_pod_and_data():
 
 #: (arch, layers, shape): full-width configs cut in depth (zamba2-7b to one
 #: attn_every period, rwkv6-3b to one layer), whose per-rank work a layer
-#: is the full models'
+#: is the full models'. A pair of depths (lo, hi) counts the work of the
+#: layers between them, count(hi) - count(lo): rwkv6-3b's decode of one
+#: sequence, whose count at any depth the head decides (XLA runs the
+#: reference's head whole on every rank, 2.10e7 FLOPs; the port splits its
+#: contraction over the batch axes, 1.31e6)
 DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k"), ("zamba2-7b", 6, "prefill_32k"),
-             ("rwkv6-3b", 1, "train_4k"), ("zamba2-7b", 6, "train_4k"))
+             ("rwkv6-3b", 1, "train_4k"), ("zamba2-7b", 6, "train_4k"),
+             ("rwkv6-3b", (1, 2), "long_500k"))
+#: the shapes held on (2, 16, 16) as well as (16, 16)
+BOTH_MESHES = ("train_4k", "long_500k")
 
 _REFERENCE_COUNT = """
 import dataclasses, json, sys
@@ -501,22 +508,37 @@ for arch, layers, shape, multi_pod in json.loads(sys.argv[1]):
     dryrun.get_config = lambda name, cfg=cfg: cfg
     compiled, aux = dryrun.lower_cell(
         arch, shape, make_production_mesh(multi_pod=multi_pod))
-    out[f"{arch}/{shape}/{multi_pod}"] = roofline_report(
+    out[f"{arch}/{layers}/{shape}/{multi_pod}"] = roofline_report(
         compiled, HW(), chips=aux["chips"])["hlo_flops_per_device"]
 print(json.dumps(out))
 """
 
 
+def _depths(layers) -> tuple:
+    return layers if isinstance(layers, tuple) else (layers,)
+
+
+def _cut(count: dict, arch: str, layers, shape: str, multi_pod) -> float:
+    """A ``DEPTH_CUT`` cell's count from ``count`` (keyed
+    arch/layers/shape/multi_pod): at its depth, or for a pair of depths
+    the layers' between them."""
+    n = [count[f"{arch}/{d}/{shape}/{multi_pod}"] for d in _depths(layers)]
+    return n[-1] - (n[0] if len(n) > 1 else 0)
+
+
 @functools.lru_cache(maxsize=None)
 def _depth_cut_counts() -> dict:
     """Per-rank FLOPs of the ``DEPTH_CUT`` cells on (16, 16) and, for the
-    train cells, (2, 16, 16): the port's traced as rank 0 of fake worlds of
-    256 and 512 ranks, the reference's ``hlo_flops_per_device`` compiled
+    ``BOTH_MESHES`` shapes, (2, 16, 16): the port's traced as rank 0 of
+    fake worlds of 256 and 512 ranks, the reference's
+    ``hlo_flops_per_device`` compiled
     on 512 forced host devices (``lower_cell`` with the depth-cut config
-    in place of the registry's; nothing is written). The four children
-    run at once."""
+    in place of the registry's; nothing is written), at each depth of a
+    cell (keyed arch/layers/shape/multi_pod). The four children run at
+    once."""
     def port(multi_pod):
-        cells = [c for c in DEPTH_CUT if not multi_pod or c[2] == "train_4k"]
+        cells = [(a, d, s) for a, n, s in DEPTH_CUT for d in _depths(n)
+                 if not multi_pod or s in BOTH_MESHES]
         return _spawn_world(512 if multi_pod else 256, f"""
             import dataclasses
             from repro_torch.configs import SHAPES, get_config
@@ -528,13 +550,15 @@ def _depth_cut_counts() -> dict:
             for arch, layers, shape in {cells!r}:
                 cfg = dataclasses.replace(get_config(arch), n_layers=layers)
                 traced, _, _ = _lower(cfg, SHAPES[shape], mesh)
-                out[f"{{arch}}/{{shape}}/{multi_pod}"] = traced.cost.flops
+                out[f"{{arch}}/{{layers}}/{{shape}}/{multi_pod}"] = (
+                    traced.cost.flops)
             print(json.dumps(out))
         """)
 
     def reference(arch):
-        cells = [(a, n, s, mp) for a, n, s in DEPTH_CUT if a == arch
-                 for mp in ((False, True) if s == "train_4k" else (False,))]
+        cells = [(a, d, s, mp) for a, n, s in DEPTH_CUT if a == arch
+                 for d in _depths(n)
+                 for mp in ((False, True) if s in BOTH_MESHES else (False,))]
         env = dict(_env(), XLA_FLAGS="--xla_force_host_platform_device_count"
                                      "=512")
         return subprocess.Popen(
@@ -558,25 +582,27 @@ def _chip_smoke_depth_cut() -> dict:
     return {f"{a}/{s}": ref for a, _, s, ref in ast.literal_eval(value)}
 
 
-@pytest.mark.parametrize("arch,layers,shape", DEPTH_CUT)
+@pytest.mark.parametrize("arch,layers,shape", DEPTH_CUT, ids=[
+    "-".join(map(str, (a, *_depths(n), s))) for a, n, s in DEPTH_CUT])
 def test_depth_cut_cells_do_the_references_work_a_rank(arch, layers, shape):
     """zamba2-7b's and rwkv6-3b's per-rank FLOPs at full width, cut in
     depth, on both production meshes: at most 1.5x (and at least half)
     the reference's, and a train step's halving from (16, 16) to (2, 16,
-    16) with the batch it splits. chip_smoke.py's copy of the reference's
-    count for a cell it gates is the count measured here."""
+    16) with the batch it splits; for a pair of depths, the work of the
+    layers between them. chip_smoke.py's copy of the reference's count for
+    a cell it gates is the count measured here."""
     got = _depth_cut_counts()
-    meshes = (False, True) if shape == "train_4k" else (False,)
+    meshes = (False, True) if shape in BOTH_MESHES else (False,)
+    port, ref = ({mp: _cut(got[k], arch, layers, shape, mp) for mp in meshes}
+                 for k in ("port", "reference"))
     for multi_pod in meshes:
-        key = f"{arch}/{shape}/{multi_pod}"
-        port, ref = got["port"][key], got["reference"][key]
-        assert 0.5 * ref <= port <= 1.5 * ref, (key, port, ref)
+        assert 0.5 * ref[multi_pod] <= port[multi_pod] <= 1.5 * ref[
+            multi_pod], (arch, layers, shape, multi_pod, port, ref)
     copied = _chip_smoke_depth_cut().get(f"{arch}/{shape}")
     if copied is not None:
-        assert copied == got["reference"][f"{arch}/{shape}/False"]
+        assert copied == ref[False]
     if shape == "train_4k":
-        port = got["port"]
-        ratio = port[f"{arch}/{shape}/True"] / port[f"{arch}/{shape}/False"]
+        ratio = port[True] / port[False]
         assert 0.49 <= ratio <= 0.52, ratio
 
 
@@ -783,13 +809,21 @@ def models_on(m, cases):
 
 
 # RWKV-6's mixes and head for one sequence on (2, 1, 2): 'pod' and 'data'
-# cannot split a batch of one, so they split the products' contracted
-# channels (rwkv6._Ranks), against one process
-def one_sequence(m):
+# cannot split a batch of one, so they split the column-parallel products'
+# contracted channels and the row-parallel products' output channels
+# (rwkv6._Ranks), against one process: 4 heads (one a 'model' rank, as the
+# decode cache splits them), 5 (3 and 2 a rank in a sequence's run; the
+# cache replicates them, and a decode step runs all 5), and 4 with a decay
+# lora 63 wide, which 'model' does not divide (the time mix whole over it)
+ONE_SEQUENCE = {"4-heads": (64, 64), "5-heads": (80, 64),
+                "whole-over-model": (64, 63)}
+
+
+def one_sequence(m, d, lora):
     from repro_torch.models import rwkv6
     gen = torch.Generator().manual_seed(2)
-    d, hd = 64, 16
-    tm = rwkv6.init_rwkv_tmix(gen, d, hd)
+    hd = 16
+    tm = rwkv6.init_rwkv_tmix(gen, d, hd, lora)
     cm = rwkv6.init_rwkv_cmix(gen, d, 128)
     head = torch.randn((d, 256), generator=gen)
     x = torch.randn((1, 8, d), generator=gen)
@@ -799,6 +833,10 @@ def one_sequence(m):
     col, row = (None, "model"), ("model", None)
     specs = {"Wr": col, "Wk": col, "Wv": col, "Wg": col, "wA": col,
              "Wo": row}
+    from repro_torch.distributed.sharding import cache_spec
+    from repro_torch.configs import get_config
+    s_spec = cache_spec(("S",), (1, 1) + tuple(state["S"].shape[1:]), m,
+                        get_config("rwkv6-3b"), 1)[1:]
     c_specs = {"Wk": col, "Wr": col, "Wv": row}
 
     def run(place, ctx):
@@ -808,7 +846,7 @@ def one_sequence(m):
               for k, v in cm.items()}
         xi = place(x, (None,) * 3).requires_grad_()
         with ctx():
-            yt, _ = rwkv6.apply_rwkv_tmix(tp, xi, head_dim=hd)
+            yt, (_, st_whole) = rwkv6.apply_rwkv_tmix(tp, xi, head_dim=hd)
             yc, _ = rwkv6.apply_rwkv_cmix(cp, xi)
             loss = ((yt * place(cot[0], (None,) * 3)).sum()
                     + (yc * place(cot[1], (None,) * 3)).sum())
@@ -816,13 +854,18 @@ def one_sequence(m):
                                                      *cp.values()])
             with torch.no_grad():
                 ys, st = rwkv6.decode_rwkv_tmix(
-                    tp, xi[:, :1], {k: place(v, (None,) * v.dim())
-                                    for k, v in state.items()}, hd)
+                    tp, xi[:, :1], {"x": place(state["x"], (None,) * 3),
+                                    "S": place(state["S"], s_spec)}, hd)
                 h = xi[:, -1]
                 w = place(head, col)
                 logits = rwkv6.head_logits(h, w)
-        return ([full(t).detach() for t in (yt, yc, ys, st["S"], logits)],
-                [full(g) for g in grads])
+        # the new state keeps the decode cache's layout
+        layout = (not isinstance(st["S"], DTensor) or tuple(
+            st["S"].placements) == tuple(NamedSharding(m, s_spec)
+                                         .placements))
+        return ([full(t).detach() for t in (yt, st_whole, yc, ys, st["S"],
+                                            logits)],
+                [full(g) for g in grads], layout)
     want = run(lambda t, s: t.clone(), contextlib.nullcontext)
     got = run(lambda t, s: NamedSharding(m, s).place(t.clone()),
               lambda: activate_mesh(m))
@@ -831,14 +874,16 @@ def one_sequence(m):
                               for a, b in zip(got[0], want[0])],
             "grads_close": [bool(torch.allclose(
                 a, b, rtol=1e-3, atol=1e-4 * float(b.abs().max()) + 1e-12))
-                for a, b in zip(got[1], want[1])]}
+                for a, b in zip(got[1], want[1])],
+            "state_layout": got[2]}
 
 
 res["models"] = models_on(remesh(list(range(world)), 2, pods=pods,
                                   torch_device="cpu"), MODELS)
 if pods == 2:
-    res["one_sequence"] = one_sequence(remesh(list(range(world)), 2,
-                                              pods=pods, torch_device="cpu"))
+    res["one_sequence"] = {case: one_sequence(remesh(
+        list(range(world)), 2, pods=pods, torch_device="cpu"), d, lora)
+        for case, (d, lora) in ONE_SEQUENCE.items()}
 else:
     res["models"].update(models_on(remesh(list(range(world)), 2,
                                           torch_device="cpu"), DENSE))
@@ -943,6 +988,25 @@ def test_peak_bytes_follow_the_allocator_across_gloo_ranks():
         assert rank["op_cost"] == pytest.approx(rank["allocator"], rel=0.01)
 
 
+def test_fake_world_peak_bytes_follow_the_allocator():
+    """The dry-run's count of the same train step, traced as rank 0 of a
+    fake world of two on meta tensors (``temp_vs_allocator.py``'s fake
+    column), within 1% of each gloo rank's allocator peak: a collective's
+    result counts for as long as a real rank holds it, though the meta
+    kernel of its wrapper returns a fresh tensor."""
+    got = _in_world(2, f"""
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "temp_vs_allocator",
+            {str(ROOT / "scripts" / "torch" / "temp_vs_allocator.py")!r})
+        tva = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tva)
+        print(json.dumps(tva.fake_peak("qwen3-0.6b", 8, 256, 4)))
+    """)
+    for rank in _gloo_world(2)["peaks"]:
+        assert got == pytest.approx(rank["allocator"], rel=0.01)
+
+
 @pytest.mark.parametrize("case", ["rwkv6-3b/5-heads", "zamba2-7b/5-heads",
                                   "qwen3-0.6b/1-kv-head",
                                   "qwen2-1.5b/odd-ff"])
@@ -959,14 +1023,21 @@ def test_uneven_head_shares_across_gloo_ranks(case):
     assert got.get("prefill_close", [True] * 3) == [True] * 3
 
 
-def test_one_sequence_splits_the_contraction_across_gloo_ranks():
-    """RWKV-6's time and channel mixes (outputs and every gradient), one
-    decode step and the head for a batch of one on a (2, 1, 2) mesh of
-    processes, whose 'pod' axis then splits the products' contracted
-    channels, against one process."""
-    got = _gloo_world(4, 2)["one_sequence"]
-    assert got["outputs_close"] == [True] * 5
+@pytest.mark.parametrize("case", ["4-heads", "5-heads", "whole-over-model"])
+def test_one_sequence_splits_the_contraction_across_gloo_ranks(case):
+    """RWKV-6's time and channel mixes (outputs, the whole sequence's state
+    and every gradient), one decode step (its output and new state, in
+    the decode cache's layout) and the head for a batch of one on a (2, 1,
+    2) mesh of processes, whose 'pod' axis then splits the column-parallel
+    products' contracted channels and the row-parallel products' output
+    channels, against one process: 4 heads, 5, which split unevenly over
+    'model' (a rank with 2), and a time mix that 'model' does not split
+    (which runs every head and returns its new state whole, not in the
+    cache's split of 4 heads)."""
+    got = _gloo_world(4, 2)["one_sequence"][case]
+    assert got["outputs_close"] == [True] * 6
     assert got["grads_close"] == [True] * 21      # x and 20 parameters
+    assert got["state_layout"] == (case != "whole-over-model")
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "hubert-xlarge", "zamba2-7b",
