@@ -2855,19 +2855,35 @@ TRAIN_FULL_PARAMS = 751_894_528
 #: the dry-run's cells on the card's torch: (arch, shape), then an Ising key
 DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("olmoe-1b-7b", "train_4k"))
 DRYRUN_ISING = "chip64"
+#: the reference's per-rank counts of the two LM cells on (16, 16):
+#: {(arch, shape): [``hlo_flops_per_device``, ``collective_bytes_per_device``]}
+#: of ``repro.launch.dryrun.lower_cell``, compiled on 512 forced host
+#: devices (tests/test_torch_dryrun.py measures them)
+DRYRUN_REFERENCE = {
+    ("qwen2-7b", "decode_32k"): [16_345_010_682.0, 32_456_704],
+    ("olmoe-1b-7b", "train_4k"): [51_570_486_736_305.0, 143_426_601_160]}
 #: full-width cells cut in depth, traced in the same world, each with the
-#: reference's per-rank FLOPs on (16, 16) (``hlo_flops_per_device`` of
-#: ``repro.launch.dryrun.lower_cell`` with the cut config, compiled on 512
-#: forced host devices; tests/test_torch_dryrun.py measures it): (arch,
-#: layers, shape, reference FLOPs a rank). The port's count must stay
-#: within DRYRUN_CUT_MIN-DRYRUN_CUT_MAX of it. A pair of depths (lo, hi)
-#: counts the layers between them, count(hi) - count(lo): one sequence's
-#: decode, whose count the head decides at any depth (XLA runs the
-#: reference's head whole on every rank).
-DRYRUN_DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k", 719_250_195_496.0),
-                    ("zamba2-7b", 6, "train_4k", 25_253_469_056_684.0),
-                    ("rwkv6-3b", (1, 2), "long_500k", 884_194.0))
+#: reference's per-rank FLOPs and collective bytes on (16, 16) (of
+#: ``lower_cell`` with the cut config; tests/test_torch_dryrun.py measures
+#: them): (arch, layers, shape, reference FLOPs a rank, reference
+#: collective bytes a rank). The port's FLOPs must stay within
+#: DRYRUN_CUT_MIN-DRYRUN_CUT_MAX of the reference's. A pair of depths (lo,
+#: hi) counts the layers between them, count(hi) - count(lo): one
+#: sequence's decode, whose count the head decides at any depth (XLA runs
+#: the reference's head whole on every rank).
+DRYRUN_DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k", 719_250_195_496.0,
+                     4_966_055_936),
+                    ("zamba2-7b", 6, "train_4k", 25_253_469_056_684.0,
+                     56_836_510_840),
+                    ("rwkv6-3b", (1, 2), "long_500k", 884_194.0,
+                     23_360))
 DRYRUN_CUT_MIN, DRYRUN_CUT_MAX = 0.5, 1.5
+#: the most collective bytes a rank (an all-gather charged its result, an
+#: all-reduce twice, as both packages count them) the port may move in a
+#: held cell, over the reference's; a cell with an open fault is held
+#: under its own bound, so that it does not grow
+DRYRUN_COLL_MAX = 1.25
+DRYRUN_COLL_OPEN = {("rwkv6-3b", "long_500k"): 4.0}
 #: the full-width step phase train measured, for phase dryrun's count
 REAL_STEP = {}
 
@@ -3351,8 +3367,8 @@ def dryrun_world_cells() -> list:
     """``run_cell`` / ``run_ising_cell`` as rank 0 of a fake world of 256
     ranks on the card, in a child Python (one process holds one world):
     one record a cell; then one a ``DRYRUN_DEPTH_CUT`` cell (its per-rank
-    FLOPs and collective bytes, keyed ``depth_cut``; for a pair of depths
-    the layers' between them)."""
+    FLOPs and collective bytes as ``roofline_report`` totals them, keyed
+    ``depth_cut``; for a pair of depths the layers' between them)."""
     code = "\n".join([
         "import dataclasses, json, logging, sys, time",
         f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})",
@@ -3374,7 +3390,8 @@ def dryrun_world_cells() -> list:
         "        failed, rec = 1, {'arch': arch, 'shape': shape,"
         " 'error': repr(e)[:500]}",
         "    print(json.dumps(rec), flush=True)",
-        f"for arch, layers, shape, _ in {DRYRUN_DEPTH_CUT!r}:",
+        "from repro_torch.roofline import roofline_report",
+        f"for arch, layers, shape, _, _ in {DRYRUN_DEPTH_CUT!r}:",
         "    t0 = time.perf_counter()",
         "    rec = {'depth_cut': arch, 'layers': layers, 'shape': shape}",
         "    try:",
@@ -3385,7 +3402,8 @@ def dryrun_world_cells() -> list:
         "get_config(arch), n_layers=n), SHAPES[shape], make_production_mesh("
         "torch_device='cuda'))",
         "            flops += sign * traced.cost.flops",
-        "            coll += sign * sum(traced.cost.collectives.values())",
+        "            coll += sign * roofline_report(traced.cost)["
+        "'collective_bytes_per_device']",
         "        rec.update(flops=flops, collective_bytes=coll,"
         " trace_s=time.perf_counter() - t0)",
         "    except Exception as e:",
@@ -3413,7 +3431,9 @@ def phase_dryrun():
     fake world of 256 ranks on the card's device type, and three full-width
     cells cut in depth (``DRYRUN_DEPTH_CUT``; one counts the layers
     between two depths), whose per-rank FLOPs must
-    stay within ``DRYRUN_CUT_MIN``-``DRYRUN_CUT_MAX`` of the reference's.
+    stay within ``DRYRUN_CUT_MIN``-``DRYRUN_CUT_MAX`` of the reference's;
+    the collective bytes a rank of the LM cells and the cut cells at most
+    ``DRYRUN_COLL_MAX`` of the reference's.
     (2) qwen3-0.6b at
     full width with phase train's batch traced on the card's (1, 1) host
     mesh against the real step: FLOPs, bytes and argument bytes
@@ -3433,18 +3453,30 @@ def phase_dryrun():
     world_s = time.perf_counter() - t0
     cuts = [rec for rec in records if "depth_cut" in rec]
     records = [rec for rec in records if "depth_cut" not in rec]
-    for rec, (arch, layers, shape, ref) in zip(cuts, DRYRUN_DEPTH_CUT):
-        rec.update(reference_flops=ref, over_reference=rec["flops"] / ref)
+    for rec, (arch, layers, shape, ref, ref_coll) in zip(cuts,
+                                                         DRYRUN_DEPTH_CUT):
+        rec.update(reference_flops=ref, over_reference=rec["flops"] / ref,
+                   reference_collective_bytes=ref_coll,
+                   coll_over_reference=rec["collective_bytes"] / ref_coll)
         emit({"phase": "dryrun", "depth_cut": rec})
         check(DRYRUN_CUT_MIN <= rec["over_reference"] <= DRYRUN_CUT_MAX,
               f"dry-run {arch} at {layers} layers x {shape}: "
               f"{rec['flops']:.4g} FLOPs a rank, "
               f"{rec['over_reference']:.3f}x the reference's {ref:.4g} "
               f"(limits {DRYRUN_CUT_MIN}-{DRYRUN_CUT_MAX})")
+        limit = DRYRUN_COLL_OPEN.get((arch, shape), DRYRUN_COLL_MAX)
+        check(0 < rec["coll_over_reference"] <= limit,
+              f"dry-run {arch} at {layers} layers x {shape}: "
+              f"{rec['collective_bytes']:.4g} collective bytes a rank, "
+              f"{rec['coll_over_reference']:.3f}x the reference's "
+              f"{ref_coll:.4g} (limit {limit})")
     check(len(cuts) == len(DRYRUN_DEPTH_CUT),
           f"the dry-run's world gave {len(cuts)} depth-cut records")
     for rec in records:
         rep, mem = rec["roofline"], rec["memory"]
+        ref_flops, ref_coll = DRYRUN_REFERENCE.get(
+            (rec["arch"], rec["shape"]), (None, None))
+        coll = rep["collective_bytes_per_device"]
         emit({"phase": "dryrun", "cell": {
             "arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
             "kind": rec["kind"], "trace_s": rec["trace_s"],
@@ -3455,10 +3487,19 @@ def phase_dryrun():
             "t_collective_s": rep["t_collective_s"],
             "dominant": rep["dominant"],
             "collective_breakdown": rep["collective_breakdown"],
+            "collective_bytes_per_device": coll,
             "roofline_fraction": rep["roofline_fraction"],
-            "model_flops": rec["model_flops"]}})
+            "model_flops": rec["model_flops"],
+            "flops_over_reference": (rep["hlo_flops_per_device"] / ref_flops
+                                     if ref_flops else None),
+            "coll_over_reference": coll / ref_coll if ref_coll else None}})
         check(rep["hlo_flops_per_device"] > 0,
               f"dry-run {rec['arch']} x {rec['shape']}: no FLOPs counted")
+        if ref_coll:
+            check(0 < coll <= DRYRUN_COLL_MAX * ref_coll,
+                  f"dry-run {rec['arch']} x {rec['shape']}: {coll:.4g} "
+                  f"collective bytes a rank, {coll / ref_coll:.3f}x the "
+                  f"reference's {ref_coll:.4g} (limit {DRYRUN_COLL_MAX})")
     check(len(records) == len(DRYRUN_CELLS) + 1,
           f"the dry-run's world gave {len(records)} records")
 

@@ -1,5 +1,6 @@
 """The port's dry-run against the reference's, cell by cell: per-rank FLOPs
-on both production meshes, from the records each package's dry-run writes.
+and collective bytes on both production meshes, from the records each
+package's dry-run writes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes \\
         --torch-device cpu
@@ -11,8 +12,10 @@ on both production meshes, from the records each package's dry-run writes.
         --reference <copy>/experiments/dryrun [--baseline <dir>]
 
 Prints one markdown row a cell: for each mesh the port's argument and temp
-GiB a rank, its C / M / X ms, its useful-FLOPs ratio, and its FLOPs a
-rank over the reference's ``hlo_flops_per_device``. ``--baseline`` names
+GiB a rank, its C / M / X ms, its useful-FLOPs ratio, its FLOPs a rank
+over the reference's ``hlo_flops_per_device``, and its collective bytes a
+rank over the reference's ``collective_bytes_per_device`` (each package's
+all-reduce counted twice, a ring's traffic). ``--baseline`` names
 an earlier run of the port's dry-run; each mesh then also shows the new
 run's FLOPs and collective bytes a rank over the baseline's. Reads JSON
 only; imports neither package.
@@ -43,8 +46,9 @@ def _records(directory: str) -> dict:
 def compare(port_dir: str, reference_dir: str,
             baseline_dir: str | None = None) -> list:
     """One dict a (arch, shape) of the port's records: per mesh the port's
-    and the reference's FLOPs a rank, their ratio (None where the
-    reference has no record), the port's argument and temp GiB, C / M / X
+    and the reference's FLOPs a rank and collective bytes a rank, their
+    ratios (None where the reference has no record), both packages'
+    collective bytes by kind, the port's argument and temp GiB, C / M / X
     seconds and useful-FLOPs ratio, and with a baseline the new run's
     FLOPs and collective bytes a rank over the baseline's."""
     port, ref = _records(port_dir), _records(reference_dir)
@@ -54,10 +58,18 @@ def compare(port_dir: str, reference_dir: str,
         rep = rec["roofline"]
         flops = rep["hlo_flops_per_device"]
         r = ref.get((arch, shape, mesh))
-        r_flops = r["roofline"]["hlo_flops_per_device"] if r else None
+        r_rep = r["roofline"] if r else {}
+        r_flops = r_rep.get("hlo_flops_per_device")
+        coll = rep["collective_bytes_per_device"]
+        r_coll = r_rep.get("collective_bytes_per_device")
         mem = rec["memory"]
         cell = {"flops": flops, "reference_flops": r_flops,
                 "over_reference": flops / r_flops if r_flops else None,
+                "coll": coll, "reference_coll": r_coll,
+                "coll_over_reference": coll / r_coll if r_coll else None,
+                "breakdown": {"port": rep.get("collective_breakdown"),
+                              "reference": r_rep.get(
+                                  "collective_breakdown")},
                 "gib": [mem["argument_size_in_bytes"] / 2**30,
                         mem["temp_size_in_bytes"] / 2**30],
                 "t_s": [rep["t_compute_s"], rep["t_memory_s"],
@@ -89,8 +101,8 @@ def table(rows: list) -> str:
     head = ["cell"]
     for mesh in MESHES:
         head += [f"{mesh}: args / temp GiB", "C / M / X ms", "useful",
-                 "port / ref FLOPs"] + (["FLOPs, coll. / base"]
-                                        if baseline else [])
+                 "port / ref FLOPs", "port / ref coll."] + (
+                     ["FLOPs, coll. / base"] if baseline else [])
     lines = ["| " + " | ".join(head) + " |",
              "|" + "---|" * len(head)]
     for row in rows:
@@ -98,12 +110,13 @@ def table(rows: list) -> str:
         for mesh in MESHES:
             c = row.get(mesh)
             if c is None:
-                cols += ["-"] * (5 if baseline else 4)
+                cols += ["-"] * (6 if baseline else 5)
                 continue
             cols += [" / ".join(f"{g:.2f}" for g in c["gib"]),
                      " / ".join(f"{t * 1e3:.1f}" for t in c["t_s"]),
                      _fmt(c["useful"], ".3f"),
-                     _fmt(c["over_reference"], ".3f")]
+                     _fmt(c["over_reference"], ".3f"),
+                     _fmt(c["coll_over_reference"], ".3f")]
             if baseline:
                 cols.append(", ".join(_fmt(c.get(k), ".3f") for k in (
                     "flops_over_baseline", "collectives_over_baseline")))

@@ -52,6 +52,23 @@ def _compute_dtype(dev: DeviceModel) -> torch.dtype:
                          f"{dev.compute_dtype!r}") from None
 
 
+def _replicate_spin_axis(q8):
+    """The ADC's int8 spins whole along the spin axis where they are
+    DTensors that split it (the reference's constraint of the same name):
+    the cross-shard exchange then moves the 1-byte spins, not the f32
+    scaled ones, 4x the bytes. Numerically exact; the other axes keep
+    their layout, and a plain tensor is returned as it is."""
+    placements = getattr(q8, "placements", None)
+    if placements is None:
+        return q8
+    from torch.distributed.tensor import Replicate
+    d = q8.dim() - 1
+    want = [Replicate() if p.is_shard(d) else p for p in placements]
+    if want == list(placements):
+        return q8
+    return q8.redistribute(q8.device_mesh, want)
+
+
 def anneal(J: torch.Tensor, v0: torch.Tensor, dev: DeviceModel,
            pert: PerturbationConfig,
            noise_seed: Optional[int] = None,
@@ -92,7 +109,7 @@ def anneal(J: torch.Tensor, v0: torch.Tensor, dev: DeviceModel,
     noise_scale = dev.noise_sigma * dev.dt
     recs = []
     for t in range(T):
-        q8 = sign_pm1(v, dev.threshold, torch.int8)
+        q8 = _replicate_spin_axis(sign_pm1(v, dev.threshold, torch.int8))
         sq = (q8.to(torch.float32) * scales[t]).to(cdt).to(torch.float32)
         dv = torch.matmul(sq, Jt)
         if use_noise:

@@ -18,7 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import ACTIVE_MESH, BATCH_AXES, placements, spec
+from ..distributed.sharding import (ACTIVE_MESH, BATCH_AXES, data_size,
+                                    placements, spec)
 
 
 # --------------------------------------------------------------------------
@@ -69,7 +70,8 @@ def process_mesh():
 
 
 def shard(x, *axes):
-    """``x`` laid out as ``logical(*axes)`` on the active mesh.
+    """``x`` laid out as ``logical(*axes)`` on the active mesh (a leading
+    'batch' as ``batch_rows`` lays out x's rows).
 
     The identity when no mesh is active and on a virtual mesh (all ranks
     on one device), as a sharding constraint is on a one-device mesh in
@@ -85,11 +87,25 @@ def shard(x, *axes):
         raise TypeError("shard: on a mesh of processes x must be a DTensor, "
                         f"got {type(x).__name__}")
     dm = mesh.device_mesh
-    want = placements(logical(*axes), mesh.device_axes)
+    s = logical(*axes)
+    if axes and axes[0] == "batch":
+        s = (batch_rows(x.shape[0], mesh),) + s[1:]
+    want = placements(s, mesh.device_axes)
     y = x.redistribute(dm, want)
     if y.requires_grad:
         y.register_hook(lambda g: g.redistribute(dm, want))
     return y
+
+
+def batch_rows(n: int, mesh):
+    """The spec entry of ``n`` rows on ``mesh``: the batch axes where they
+    divide the rows, else None. One sequence decoding is whole on every
+    rank, as the reference's ``batch_spec`` and ``cache_spec`` lay out its
+    tokens and state; split, a rank would hold it and the others nothing,
+    and each use gather it back."""
+    if mesh is None or n % data_size(mesh):
+        return None
+    return logical("batch")[0]
 
 
 def replicated(x):
@@ -218,12 +234,7 @@ def own_range(n: int, mesh) -> tuple:
     splits an uneven dimension: chunks of ceil(n / tp), the last ones
     short or empty (40 heads on 16 ranks: 3 on each of ranks 0-12, 1 on
     rank 13, none on 14 and 15). All of them with ``mesh`` None."""
-    tp = 1 if mesh is None else mesh.shape.get(MODEL_AXIS, 1)
-    if tp == 1:
-        return 0, n
-    c = -(-n // tp)
-    lo = min(mesh.device_mesh.get_local_rank(MODEL_AXIS) * c, n)
-    return lo, min(lo + c, n)
+    return model_ranges(n, mesh)(model_rank(mesh))
 
 
 def own_part(t, mesh, dim: int, lo: int, hi: int, split: tuple):
@@ -246,23 +257,6 @@ def own_part(t, mesh, dim: int, lo: int, hi: int, split: tuple):
     return w if (lo, hi) == (0, n) else w.narrow(dim, lo, hi - lo)
 
 
-def gather_heads(t, mesh, dim: int, n: int, batch: int, row):
-    """(B_l, ..., h_l, ...) this rank's heads ``own_range(n)`` on dimension
-    ``dim`` -> every head on every rank of its model group; the gradient
-    keeps each rank's own. ``row`` is the spec entry of the rows (of
-    ``batch`` in all). Uneven shares are padded to ceil(n / tp) heads for
-    the gather."""
-    tp = mesh.shape.get(MODEL_AXIS, 1)
-    c = -(-n // tp)
-    if t.shape[dim] < c:
-        t = F.pad(t, [0, 0] * (t.dim() - 1 - dim) + [0, c - t.shape[dim]])
-    s = (row,) + logical(*("model" if i == dim else None
-                           for i in range(1, t.dim())))
-    shape = (batch,) + tuple(t.shape[1:dim]) + (c * tp,) + tuple(
-        t.shape[dim + 1:])
-    return gather(t, mesh, s, dim, shape).narrow(dim, 0, n)
-
-
 def from_local(t, mesh, s: tuple, shape):
     """This rank's result ``t`` as the DTensor of global ``shape``
     (contiguous) laid out as spec ``s``: the exit of per-rank code."""
@@ -274,6 +268,97 @@ def from_local(t, mesh, s: tuple, shape):
         t, mesh.device_mesh, placements(s, mesh.device_axes), run_check=False,
         shape=shape, stride=tuple(math.prod(shape[i + 1:])
                                   for i in range(len(shape))))
+
+
+def model_rank(mesh) -> int:
+    """This rank's place on 'model' (0 with ``mesh`` None)."""
+    if mesh is None or MODEL_AXIS not in mesh.shape:
+        return 0
+    return mesh.device_mesh.get_local_rank(MODEL_AXIS)
+
+
+def model_ranges(n: int, mesh, split: bool = True):
+    """rank -> its [lo, hi) of ``n`` entries that 'model' splits
+    (``own_range``'s chunks of ceil(n / tp)); every rank's is all of them
+    with ``mesh`` None, or where ``split`` is false."""
+    if mesh is None or not split:
+        return lambda r: (0, n)
+    c = -(-n // mesh.shape.get(MODEL_AXIS, 1))
+    return lambda r: (min(r * c, n), min(r * c + c, n))
+
+
+def recut(t, mesh, held, want) -> list:
+    """Pieces of the last dimension of this rank's ``t`` after moving them
+    between the ranks of 'model': rank r's ``t`` holds the columns
+    ``held(r)`` (its [lo, hi) of a dimension they split, or all of it on
+    every rank), and gets the columns of each range of ``want(r)``, one
+    tensor a range. Only the columns that change rank move, in one
+    all-to-all (the collective-permutes XLA compiles where the reference
+    slices a split dimension off its split); none moves with ``mesh``
+    None, where the pieces are slices of ``t``."""
+    g = 1 if mesh is None else mesh.shape.get(MODEL_AXIS, 1)
+    r = model_rank(mesh)
+
+    def pieces(s: int, j: int) -> list:
+        """(range of j's, lo, hi): the columns rank s gives rank j."""
+        a, b = held(s)
+        if s != j and held(j) == (a, b):
+            return []                   # j holds them too
+        return [(i, max(a, lo), min(b, hi)) for i, (lo, hi)
+                in enumerate(want(j)) if min(b, hi) > max(a, lo)]
+    a = held(r)[0]
+    out = [[] for _ in want(r)]
+    for i, lo, hi in pieces(r, r):
+        out[i].append((lo, t[..., lo - a:hi - a]))
+    if any(pieces(s, j) for s in range(g) for j in range(g) if s != j):
+        from torch.distributed._functional_collectives import (
+            all_to_all_single_autograd as all_to_all_single)
+        local = t.movedim(-1, 0)
+        sent = [[local[lo - a:hi - a] for _, lo, hi in pieces(r, j)]
+                if j != r else [] for j in range(g)]
+        inp = torch.cat([p for ps in sent for p in ps] or [local[:0]])
+        theirs = [pieces(s, r) if s != r else [] for s in range(g)]
+        got = [sum(hi - lo for _, lo, hi in ps) for ps in theirs]
+        recv = all_to_all_single(inp, got, [sum(p.shape[0] for p in ps)
+                                            for ps in sent],
+                                 (mesh.device_mesh,
+                                  mesh.device_mesh.mesh_dim_names.index(
+                                      MODEL_AXIS)))
+        for ps, chunk in zip(theirs, torch.split(recv, got)):
+            for (i, lo, hi), p in zip(ps, torch.split(
+                    chunk, [hi - lo for _, lo, hi in ps])):
+                out[i].append((lo, p.movedim(0, -1)))
+        # every rank's result depends on what it received, if nothing, so
+        # that every rank runs the all-to-all's backward
+        out[0].append((-1, recv.movedim(0, -1)[..., :0]))
+    return [t[..., :0] if not parts else parts[0][1] if len(parts) == 1
+            else torch.cat([p for _, p in sorted(parts, key=lambda x: x[0])],
+                           dim=-1) for parts in out]
+
+
+def first_columns(t, n: int):
+    """``t[..., :n]``. Where ``t`` is a DTensor whose last dimension
+    'model' splits evenly (a vocab-parallel head's padded logits), the
+    result keeps that split, in DTensor's chunks of ``n``: each rank keeps
+    the columns of its chunk it holds and receives the others
+    (``recut``), as XLA compiles the reference's slice to a
+    collective-permute of them. DTensor's own slice would gather every
+    column onto every rank."""
+    from torch.distributed.tensor import DTensor
+    mesh = process_mesh()
+    d = t.dim() - 1
+    if mesh is None or n == t.shape[d] or \
+            shard_axes(t, mesh, d) != (MODEL_AXIS,) or \
+            any(p.is_partial() for p in t.placements):
+        return t[..., :n]
+    take = model_ranges(n, mesh)
+    out, = recut(t.to_local(), mesh, model_ranges(t.shape[d], mesh),
+                 lambda j: [take(j)])
+    shape = tuple(t.shape[:d]) + (n,)
+    return DTensor.from_local(
+        out.contiguous(), mesh.device_mesh, t.placements, run_check=False,
+        shape=shape,
+        stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
 
 
 def shard_index(t, mesh, dim: int) -> int:

@@ -18,9 +18,10 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..distributed.sharding import batch_axes
-from .common import (dense_init, from_local, local_shard, logical,
-                     model_axes, own_part, own_range, process_mesh, psum,
-                     rms_norm, whole)
+from .common import (MODEL_AXIS, dense_init, from_local, local_shard,
+                     logical, model_axes, model_rank, model_ranges, own_part,
+                     own_range, process_mesh, psum, recut, rms_norm,
+                     shard_axes, spec, whole)
 
 
 def init_mamba2(gen: torch.Generator, d_model: int, *, expand: int = 2,
@@ -206,28 +207,74 @@ def init_mamba_state(bsz: int, n_heads: int, head_dim: int, d_state: int,
 
 def decode_mamba2(p, x, state, *, head_dim: int = 64, d_state: int = 64):
     """Single-token step. x (B, 1, D); state {'h', 'conv'} -> (y, new
-    state)."""
+    state).
+
+    On a mesh of processes each rank runs its part of the state's layout:
+    the heads of its share of h (all of them where the state does not
+    split them) and the channels of its share of the conv window, on the
+    state's rows. in_proj's own columns are a slice of [z | x B C | dt]
+    that follows neither, so the columns that belong to another rank's
+    heads or channels move to it (``recut``), and after the conv those of
+    x, B and C; XLA moves the same columns with collective-permutes.
+    out_proj's rows are the heads', its partial sums all-reduced."""
+    mesh = process_mesh()
     btype = x.dtype
-    bsz = x.shape[0]
     d_inner = p["norm_w"].shape[0]
     n_heads = p["A_log"].shape[0]
+    conv_dim = d_inner + 2 * d_state
 
-    proj = x @ p["in_proj"].to(btype)
-    z, dt_raw, xbc = _split_proj(proj, d_inner, d_state)
+    def over_model(t, dim: int) -> tuple:
+        """('model',) where 'model' alone splits ``t``'s ``dim``."""
+        m = (MODEL_AXIS,)
+        return m if mesh is not None and shard_axes(t, mesh, dim) == m \
+            else ()
+    hm, cm, pm = (over_model(state["h"], 1), over_model(state["conv"], 2),
+                  over_model(p["in_proj"], 1))
+    heads, chans, proj_cols = (model_ranges(n, mesh, bool(m)) for n, m in (
+        (n_heads, hm), (conv_dim, cm), (p["in_proj"].shape[1], pm)))
+    r = model_rank(mesh)
+    h0, h1 = heads(r)
+    c0, c1 = chans(r)
+    rows = spec(shard_axes(state["h"], mesh, 0) if mesh else None)[0]
+
+    def part(t, dim: int, lo: int, hi: int, m: tuple):
+        return own_part(t, mesh, dim, lo, hi, batch_axes(mesh) + m)
+
+    def span(o: int, rng: tuple, w: int = 1) -> tuple:
+        return o + rng[0] * w, o + rng[1] * w
+    proj = local_shard(x, mesh, (rows, None, None), split=hm) @ part(
+        p["in_proj"], 1, *proj_cols(r), pm).to(btype)
+    z, xbc, dt_raw = recut(proj, mesh, proj_cols, lambda j: [
+        span(0, heads(j), head_dim), span(d_inner, chans(j)),
+        span(d_inner + conv_dim, heads(j))])
     # rolling conv buffer
-    window = torch.cat([state["conv"], xbc.float()], dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    conv_spec = (rows, None, cm[0] if cm else None)
+    window = torch.cat([local_shard(state["conv"], mesh, conv_spec),
+                        xbc.float()], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, part(
+        p["conv_w"], 1, c0, c1, cm)) + part(p["conv_b"], 0, c0, c1, cm)
     xbc1 = F.silu(conv_out)                                        # (B, conv)
-    x_in = xbc1[:, :d_inner].reshape(bsz, n_heads, head_dim)
-    B = xbc1[:, d_inner:d_inner + d_state]
-    C = xbc1[:, d_inner + d_state:]
+    x_in, B, C = recut(xbc1, mesh, chans, lambda j: [
+        span(0, heads(j), head_dim), (d_inner, d_inner + d_state),
+        (d_inner + d_state, conv_dim)])
+    x_in = x_in.reshape(x_in.shape[0], h1 - h0, head_dim)
 
-    dt = _softplus(dt_raw[:, 0].float() + p["dt_bias"])            # (B,H)
-    a = torch.exp(dt * (-torch.exp(p["A_log"]))[None, :])          # (B,H)
-    h = state["h"] * a[..., None, None] + torch.einsum(
-        "bh,bhd,bs->bhds", dt, x_in, B)
-    y = torch.einsum("bhds,bs->bhd", h, C) + p["D"][None, :, None] * x_in
-    y = y.reshape(bsz, 1, d_inner)
-    y = rms_norm(y * F.silu(z.float()), p["norm_w"])
-    out = y.to(btype) @ p["out_proj"].to(btype)
-    return out, {"h": h, "conv": window[:, 1:]}
+    def own(t):
+        return part(t, 0, h0, h1, hm)
+    dt = _softplus(dt_raw[:, 0].float() + own(p["dt_bias"]))       # (B,H)
+    a = torch.exp(dt * (-torch.exp(own(p["A_log"])))[None, :])     # (B,H)
+    h_spec = (rows, hm[0] if hm else None, None, None)
+    h = local_shard(state["h"], mesh, h_spec) * a[..., None, None] + \
+        torch.einsum("bh,bhd,bs->bhds", dt, x_in, B)
+    y = torch.einsum("bhds,bs->bhd", h, C) + own(p["D"])[None, :, None] \
+        * x_in
+    y = y.reshape(y.shape[0], 1, (h1 - h0) * head_dim)
+    y = rms_norm(y * F.silu(z.float()),
+                 part(p["norm_w"], 0, h0 * head_dim, h1 * head_dim, hm),
+                 mesh=mesh, axes=hm, n=d_inner)
+    out = psum(y.to(btype) @ part(p["out_proj"], 0, h0 * head_dim,
+                                  h1 * head_dim, hm).to(btype), mesh, hm)
+    return (from_local(out, mesh, (rows, None, None), x.shape),
+            {"h": from_local(h, mesh, h_spec, state["h"].shape),
+             "conv": from_local(window[:, 1:], mesh, conv_spec,
+                                state["conv"].shape)})

@@ -24,9 +24,9 @@ import torch.nn.functional as F
 
 from ..distributed.sharding import batch_axes, data_size, spec
 from .common import (MODEL_AXIS, dense_init, from_local, gather,
-                     gather_heads, heads_over_ranks, local_shard, logical,
-                     model_axes, own_part, own_range, process_mesh, psum,
-                     psum_scatter, rms_norm)
+                     heads_over_ranks, local_shard, logical, model_axes,
+                     model_ranges, own_part, own_range, process_mesh, psum,
+                     psum_scatter, recut, rms_norm)
 
 WRAW_CLAMP = 0.65
 CHUNK = 32
@@ -222,9 +222,10 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     Wk / Wv / Wg / wA (the decay lora's 64 wide activations gathered);
     the recurrence over whole heads, ``own_range`` of them (40 heads on 16
     ranks: 3 or fewer a rank, none computed twice), on r, k, v and the
-    decay gathered over 'model'; its output gathered back to the rank's
-    channels for the gate and the row-parallel Wo, whose partial sums are
-    all-reduced. A decode state's heads are split only where its spec
+    decay of those heads, whose channels that lie on other ranks move to
+    it (``recut``); its output moves back to the ranks' channels for the
+    gate and the row-parallel Wo, whose partial sums are all-reduced. A
+    decode state's heads are split only where its spec
     splits them (the decode cache of 40 heads is replicated on 16 ranks,
     and a split would gather the new state each step). Where the batch
     axes split the contractions (one sequence) they also split Wo's
@@ -249,10 +250,15 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     h0, h1 = own_range(h, mesh) if rk.cm and (
         S0 is None or heads_over_ranks(mesh, h) is not None) else (0, h)
     split = h1 - h0 < h
-    r, k, v, logw = (rk.gather_cols(t, b) for t in (r, k, v, logw))
-    if split:
-        r, k, v, logw = (t[..., h0 * head_dim:h1 * head_dim]
+    cols = model_ranges(d, mesh)
+
+    def head_cols(j):
+        return [tuple(head_dim * e for e in model_ranges(h, mesh)(j))]
+    if split:       # a rank's columns -> its heads' (only the rest move)
+        r, k, v, logw = (recut(t, mesh, cols, head_cols)[0]
                          for t in (r, k, v, logw))
+    else:
+        r, k, v, logw = (rk.gather_cols(t, b) for t in (r, k, v, logw))
     u = own_part(p["u"], mesh, 0, h0, h1,
                  rk.batch + rk.kax + (rk.cm if split else ()))
     hs = (rk.rows[0], "model" if split else None, None, None)
@@ -262,11 +268,12 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
         y, S = _wkv_step(r, k, v, logw,
                          local_shard(S0, mesh, hs, split=False), u, head_dim)
     ones = torch.ones((head_dim,), dtype=torch.float32, device=y.device)
-    y = rms_norm(y.reshape(y.shape[0], s, h1 - h0, head_dim), ones)
-    if split:
-        y = gather_heads(y, mesh, 2, h, b, rk.rows[0])
-    y = rk.own_cols(y.flatten(2)) * rk.part(p["ln_w"], (rk.cols,))[
-        None, None, :]
+    y = rms_norm(y.reshape(y.shape[0], s, h1 - h0, head_dim),
+                 ones).flatten(2)
+    # the heads' outputs -> the rank's columns, for the gate and Wo
+    y = (recut(y, mesh, lambda j: head_cols(j)[0], lambda j: [cols(j)])[0]
+         if split else rk.own_cols(y))
+    y = y * rk.part(p["ln_w"], (rk.cols,))[None, None, :]
     y = rk.rmm(y * F.silu(g), p["Wo"]).to(x.dtype)
     return (from_local(y, mesh, rk.rows, (b, s, d)),
             (x[:, -1:], from_local(S, mesh, hs,

@@ -39,11 +39,11 @@ from ..distributed.sharding import batch_axes, spec
 from ..pytree import tree_map
 from .attention import (_expand_kv, decode_attention, flash_attention,
                         write_position)
-from .common import (act_fn, apply_rope, dense_init, embed_init,
-                     from_local, layer_norm, local_shard, logical,
-                     model_axes, own_part, own_range, process_mesh, psum,
-                     replicated, rms_norm, shard, shard_axes, shard_index,
-                     whole)
+from .common import (act_fn, apply_rope, batch_rows, dense_init,
+                     embed_init, first_columns, from_local, layer_norm,
+                     local_shard, logical, model_axes, own_part, own_range,
+                     process_mesh, psum, replicated, rms_norm, shard,
+                     shard_axes, shard_index, whole)
 from .moe import apply_moe, init_moe
 
 #: the families this module builds (zamba and rwkv_model build the others)
@@ -315,7 +315,7 @@ def ffn_block(p, cfg: ModelConfig, x):
     dt = x.dtype
     fm = model_axes(mesh, p["wi"].shape[-1])
     fax = fm[0] if fm else None
-    rows = logical("batch", *([None] * (x.dim() - 1)))
+    rows = (batch_rows(x.shape[0], mesh),) + (None,) * (x.dim() - 1)
     xl = local_shard(x, mesh, rows, split=fm)
 
     def w(name, s):
@@ -544,7 +544,7 @@ def lm_loss(params, cfg: ModelConfig, batch):
 
 def _logits(params, cfg: ModelConfig, h):
     logits = (h @ lm_head_weight(params, cfg).to(h.dtype)).float()
-    return logits[:, :cfg.vocab_size]            # drop vocab padding
+    return first_columns(logits, cfg.vocab_size)  # drop vocab padding
 
 
 def prefill(params, cfg: ModelConfig, tokens=None, *, embeds=None,
@@ -600,16 +600,32 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     pos = int(cache["pos"])
     x = shard(_embed(params, cfg, tokens)[:, None, :], "batch", None, None)
     b = x.shape[0]
-    dt = x.dtype
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     kc, vc = cache["k"], cache["v"]
     for i, p in enumerate(layers(params["blocks"])):
-        q, k, v = _qkv(p["attn"], cfg, _apply_norm(cfg, p["norm1"], x),
-                       positions)
-        write_position(kc[i], pos, k[:, 0].to(kc.dtype))
-        write_position(vc[i], pos, v[:, 0].to(vc.dtype))
-        o = decode_attention(q, kc[i], vc[i], pos + 1)
-        x = x + _attn_out(p["attn"], cfg, o, dt)
+        x = x + decode_attn_block(p["attn"], cfg,
+                                  _apply_norm(cfg, p["norm1"], x), positions,
+                                  kc[i], vc[i], pos)
         x = x + ffn_block(p["ffn"], cfg, _apply_norm(cfg, p["norm2"], x))
     h = _apply_norm(cfg, params["final_norm"], x)[:, 0]
     return _logits(params, cfg, h), {"k": kc, "v": vc, "pos": pos + 1}
+
+
+def decode_attn_block(p, cfg: ModelConfig, x, positions, kc, vc, pos: int):
+    """One token's self-attention (x (B, 1, D)) against the cache slices
+    ``kc`` / ``vc``, into which its k and v are written at ``pos``: the
+    block's output. On a mesh of processes the heads of the attention's
+    output that are this rank's (``_qkv``'s q heads) meet wo's rows of
+    them and the partial sums are all-reduced, Megatron's row-parallel
+    half as in ``_attention``, so the residual stream stays whole."""
+    mesh = process_mesh()
+    q, k, v = _qkv(p, cfg, x, positions)
+    write_position(kc, pos, k[:, 0].to(kc.dtype))
+    write_position(vc, pos, v[:, 0].to(vc.dtype))
+    o = decode_attention(q, kc, vc, pos + 1)
+    qm = _head_shares(cfg, mesh)[0]
+    rows = batch_rows(x.shape[0], mesh)
+    o = local_shard(o, mesh, (rows, None, "model" if qm else None, None),
+                    split=False)
+    return from_local(_attn_out(p, cfg, o, x.dtype, mesh), mesh,
+                      (rows, None, None), x.shape)

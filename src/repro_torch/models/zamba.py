@@ -13,12 +13,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import decode_attention, write_position
 from .common import embed_init, shard
 from .mamba2 import apply_mamba2, decode_mamba2, init_mamba2
-from .transformer import (_apply_norm, _attn_out, _dtype, _embed,
-                          _init_norm, _positions, _qkv, attn_block,
-                          chunked_ce_loss, ffn_block, init_attn, init_mlp,
+from .transformer import (_apply_norm, _dtype, _embed, _init_norm,
+                          _positions, attn_block, chunked_ce_loss,
+                          decode_attn_block, ffn_block, init_attn, init_mlp,
                           init_stacked, layers, place, remat)
 
 
@@ -126,7 +125,6 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
     pos = int(cache["pos"])
     x = _embed(params, cfg, tokens)[:, None, :]
     b = x.shape[0]
-    dt = x.dtype
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     shared = params["shared"]
     for i, lp in enumerate(layers(params["blocks"])):
@@ -140,13 +138,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens):
         if (i + 1) % cfg.attn_every:           # not the end of a group
             continue
         g = (i + 1) // cfg.attn_every - 1
-        kc, vc = cache["k"][g], cache["v"][g]
-        q, k, v = _qkv(shared["attn"], cfg,
-                       _apply_norm(cfg, shared["norm1"], x), positions)
-        write_position(kc, pos, k[:, 0].to(kc.dtype))
-        write_position(vc, pos, v[:, 0].to(vc.dtype))
-        o = decode_attention(q, kc, vc, pos + 1)
-        x = x + _attn_out(shared["attn"], cfg, o, dt)
+        x = x + decode_attn_block(shared["attn"], cfg,
+                                  _apply_norm(cfg, shared["norm1"], x),
+                                  positions, cache["k"][g], cache["v"][g],
+                                  pos)
         x = x + ffn_block(shared["mlp"], cfg,
                           _apply_norm(cfg, shared["norm2"], x))
     h = _apply_norm(cfg, params["final_norm"], x)[:, 0]

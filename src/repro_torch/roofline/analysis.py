@@ -5,7 +5,11 @@ Three terms per step, all in seconds:
 
     compute    = FLOPs / peak FLOP/s
     memory     = bytes / HBM bytes/s
-    collective = sum(collective operand bytes) / link bytes/s
+    collective = sum(collective bytes) / link bytes/s
+
+where each collective is charged the larger of its operand and its result
+(an all-gather its gathered result), as the reference's ``hlo_cost``
+charges it.
 
 The count comes from a ``Cost`` (``op_cost.analyze`` of one run) in place
 of the reference's compiled executable. The reference also kept XLA's
@@ -37,8 +41,10 @@ class HW:
 
 
 def collective_bytes(cost: Cost) -> dict[str, int]:
-    """Per-collective-kind summed operand bytes (per device): the
-    reference's ``collective_bytes_from_hlo``, read from the op record."""
+    """Per-collective-kind summed bytes (per device), each collective
+    charged max(operand, result): the reference's ``hlo_cost.analyze``
+    ``collectives``, which its ``roofline_report`` reads, from the op
+    record."""
     return {k: int(v) for k, v in cost.collectives.items()}
 
 

@@ -17,9 +17,13 @@ eager has no HLO, so the port counts what actually executes).
          eager counterpart of the reference's "operand+output sizes at
          fusion boundaries": eager runs no fusion, so every op is a
          boundary and the count is an upper bound on HBM traffic.
-  collectives: per-kind operand bytes of the ``c10d`` / functional
-         collectives in the same dispatch record (the ops
-         ``torch.distributed.tensor.debug.CommDebugMode`` names).
+  collectives: per-kind bytes of the ``c10d`` / functional collectives
+         in the same dispatch record (the ops
+         ``torch.distributed.tensor.debug.CommDebugMode`` names), each
+         charged the larger of what it sends and what it returns, as
+         ``hlo_cost`` charges ``max(operand, result)``: an all-gather its
+         gathered result, a reduce-scatter its operand, an all-reduce,
+         an all-to-all and a send the tensor they take.
   peak_bytes: the most bytes the run's own allocations held at once, the
          counterpart of XLA's ``temp_size_in_bytes``, counted by storage:
          a storage counts once, from the op that allocated it (a result
@@ -105,15 +109,18 @@ def _collective_kind(func) -> str | None:
     return None
 
 
-def _collective_operand(func, args):
-    """The tensors a collective sends: ``c10d``'s gather / scatter /
-    all-to-all ops take (outputs, inputs, ...), every other one takes its
-    inputs first."""
+def _collective_bytes(func, args, out) -> int:
+    """A collective's charge: the larger of the bytes it sends and those
+    of its result. ``c10d``'s gather / scatter / all-to-all ops take
+    (outputs, inputs, ...) and every other ``c10d`` op works in place on
+    its first argument; a functional op takes its inputs first and
+    returns its result."""
     name = func.__name__
-    if func.namespace == "c10d" and any(
-            f in name for f in ("allgather", "reduce_scatter", "alltoall")):
-        return args[1]
-    return args[0]
+    if func.namespace != "c10d":
+        return max(_nbytes(args[0]), _nbytes(out))
+    if any(f in name for f in ("allgather", "reduce_scatter", "alltoall")):
+        return max(_nbytes(args[1]), _nbytes(args[0]))
+    return _nbytes(args[0])
 
 
 def _subclass_types():
@@ -225,8 +232,8 @@ class _Record(TorchDispatchMode):
         ins = _tensors((args, kwargs))
         kind = _collective_kind(func)
         if kind is not None:
-            self.cost.collectives[kind] += _nbytes(
-                _collective_operand(func, args))
+            self.cost.collectives[kind] += _collective_bytes(func, args,
+                                                             out)
         if not _is_view(func):
             self.cost.bytes += sum(t.numel() * t.element_size()
                                    for t in ins + outs)

@@ -423,10 +423,15 @@ def test_every_family_traces_on_a_2x2_world(arch, kinds):
 
 
 def test_ising_layouts_runs_local_and_spins_exchanging():
+    """'runs' moves nothing; 'spins' gathers a rank's 2 problems x 8 runs
+    of int8 spins each step (the reference's ``_replicate_spin_axis``:
+    1 byte a spin, where the scaled f32 spins would be 4) and the f32
+    readout once for the energy."""
     got = _world_of_4()
     assert got["steps"] == 32
     assert got["runs"][1] == 0 and got["runs"][0] > 0
-    assert got["spins"][1] > 0 and got["spins"][0] > 0
+    assert got["spins"][0] > 0
+    assert got["spins"][1] == got["steps"] * 2 * 8 * 64 + 2 * 8 * 64 * 4
 
 
 def test_count_per_rank_on_a_4x1_world_is_the_count_of_its_batch():
@@ -489,12 +494,31 @@ def test_recurrent_families_count_alike_over_pod_and_data():
 #: layers between them, count(hi) - count(lo): rwkv6-3b's decode of one
 #: sequence, whose count at any depth the head decides (XLA runs the
 #: reference's head whole on every rank, 2.10e7 FLOPs; the port splits its
-#: contraction over the batch axes, 1.31e6)
+#: contraction over the batch axes, 1.31e6), and the decode steps whose
+#: collective bytes were repaired, with their whole cells (the registry's
+#: depth)
 DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k"), ("zamba2-7b", 6, "prefill_32k"),
              ("rwkv6-3b", 1, "train_4k"), ("zamba2-7b", 6, "train_4k"),
-             ("rwkv6-3b", (1, 2), "long_500k"))
+             ("rwkv6-3b", (1, 2), "long_500k"),
+             ("qwen3-0.6b", (1, 2), "decode_32k"),
+             ("qwen3-0.6b", 28, "decode_32k"),
+             ("olmoe-1b-7b", (1, 2), "decode_32k"),
+             ("olmoe-1b-7b", 16, "decode_32k"),
+             ("zamba2-7b", (6, 12), "decode_32k"),
+             ("zamba2-7b", 81, "decode_32k"))
 #: the shapes held on (2, 16, 16) as well as (16, 16)
-BOTH_MESHES = ("train_4k", "long_500k")
+BOTH_MESHES = ("train_4k", "long_500k", "decode_32k")
+#: the most collective bytes a rank the port may move, over the
+#: reference's ``collective_bytes_per_device`` (each package's all-reduce
+#: counted twice); a cell with an open fault is held under its own bound,
+#: so that it does not grow (rwkv6-3b's one sequence: its 40-head decode
+#: state stays whole on every rank and so needs r, k, v and the decay
+#: whole, where the reference's compiled step returns the state split)
+COLL_MAX = 1.25
+COLL_OPEN = {("rwkv6-3b", "long_500k"): 4.0}
+#: chip_smoke.py's whole dry-run cells on (16, 16): (arch, layers, shape)
+CHIP_SMOKE_CELLS = (("qwen2-7b", 28, "decode_32k"),
+                    ("olmoe-1b-7b", 16, "train_4k"))
 
 _REFERENCE_COUNT = """
 import dataclasses, json, sys
@@ -508,8 +532,9 @@ for arch, layers, shape, multi_pod in json.loads(sys.argv[1]):
     dryrun.get_config = lambda name, cfg=cfg: cfg
     compiled, aux = dryrun.lower_cell(
         arch, shape, make_production_mesh(multi_pod=multi_pod))
-    out[f"{arch}/{layers}/{shape}/{multi_pod}"] = roofline_report(
-        compiled, HW(), chips=aux["chips"])["hlo_flops_per_device"]
+    rep = roofline_report(compiled, HW(), chips=aux["chips"])
+    out[f"{arch}/{layers}/{shape}/{multi_pod}"] = [
+        rep["hlo_flops_per_device"], rep["collective_bytes_per_device"]]
 print(json.dumps(out))
 """
 
@@ -518,24 +543,27 @@ def _depths(layers) -> tuple:
     return layers if isinstance(layers, tuple) else (layers,)
 
 
-def _cut(count: dict, arch: str, layers, shape: str, multi_pod) -> float:
-    """A ``DEPTH_CUT`` cell's count from ``count`` (keyed
-    arch/layers/shape/multi_pod): at its depth, or for a pair of depths
-    the layers' between them."""
-    n = [count[f"{arch}/{d}/{shape}/{multi_pod}"] for d in _depths(layers)]
+def _cut(count: dict, arch: str, layers, shape: str, multi_pod,
+         what: int = 0) -> float:
+    """A ``DEPTH_CUT`` cell's FLOPs (``what`` 0) or collective bytes (1) a
+    rank from ``count`` (keyed arch/layers/shape/multi_pod): at its depth,
+    or for a pair of depths the layers' between them."""
+    n = [count[f"{arch}/{d}/{shape}/{multi_pod}"][what]
+         for d in _depths(layers)]
     return n[-1] - (n[0] if len(n) > 1 else 0)
 
 
 @functools.lru_cache(maxsize=None)
 def _depth_cut_counts() -> dict:
-    """Per-rank FLOPs of the ``DEPTH_CUT`` cells on (16, 16) and, for the
-    ``BOTH_MESHES`` shapes, (2, 16, 16): the port's traced as rank 0 of
-    fake worlds of 256 and 512 ranks, the reference's
-    ``hlo_flops_per_device`` compiled
+    """Per-rank FLOPs and collective bytes of the ``DEPTH_CUT`` cells on
+    (16, 16) and, for the ``BOTH_MESHES`` shapes, (2, 16, 16): the port's
+    traced as rank 0 of fake worlds of 256 and 512 ranks, the reference's
+    ``hlo_flops_per_device`` and ``collective_bytes_per_device`` compiled
     on 512 forced host devices (``lower_cell`` with the depth-cut config
     in place of the registry's; nothing is written), at each depth of a
-    cell (keyed arch/layers/shape/multi_pod). The four children run at
-    once."""
+    cell (keyed arch/layers/shape/multi_pod); and the reference's counts
+    of ``CHIP_SMOKE_CELLS``. The children (two worlds of the port, one
+    reference Python an arch) run at once."""
     def port(multi_pod):
         cells = [(a, d, s) for a, n, s in DEPTH_CUT for d in _depths(n)
                  if not multi_pod or s in BOTH_MESHES]
@@ -544,14 +572,16 @@ def _depth_cut_counts() -> dict:
             from repro_torch.configs import SHAPES, get_config
             from repro_torch.launch.dryrun import _lower
             from repro_torch.launch.mesh import make_production_mesh
+            from repro_torch.roofline import roofline_report
             mesh = make_production_mesh(multi_pod={multi_pod},
                                         torch_device="cpu")
             out = {{}}
             for arch, layers, shape in {cells!r}:
                 cfg = dataclasses.replace(get_config(arch), n_layers=layers)
                 traced, _, _ = _lower(cfg, SHAPES[shape], mesh)
-                out[f"{{arch}}/{{layers}}/{{shape}}/{multi_pod}"] = (
-                    traced.cost.flops)
+                out[f"{{arch}}/{{layers}}/{{shape}}/{multi_pod}"] = [
+                    traced.cost.flops, roofline_report(traced.cost)[
+                        "collective_bytes_per_device"]]
             print(json.dumps(out))
         """)
 
@@ -559,57 +589,87 @@ def _depth_cut_counts() -> dict:
         cells = [(a, d, s, mp) for a, n, s in DEPTH_CUT if a == arch
                  for d in _depths(n)
                  for mp in ((False, True) if s in BOTH_MESHES else (False,))]
+        cells += [(a, n, s, False) for a, n, s in CHIP_SMOKE_CELLS
+                  if a == arch]
         env = dict(_env(), XLA_FLAGS="--xla_force_host_platform_device_count"
                                      "=512")
         return subprocess.Popen(
             [sys.executable, "-c", _REFERENCE_COUNT, json.dumps(cells)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
+    archs = sorted({a for a, _, _ in DEPTH_CUT + CHIP_SMOKE_CELLS})
     procs = {"port": [port(False), port(True)],
-             "reference": [reference("rwkv6-3b"), reference("zamba2-7b")]}
+             "reference": [reference(a) for a in archs]}
     return {k: {c: n for p in ps for c, n in _read(p, 600).items()}
             for k, ps in procs.items()}
 
 
-def _chip_smoke_depth_cut() -> dict:
-    """chip_smoke.py's ``DRYRUN_DEPTH_CUT`` (the reference's counts the
-    card's gate holds the port to), read from its source, which imports
-    CUDA-only code: {arch/shape: reference FLOPs a rank}."""
+def _chip_smoke_constant(name: str):
+    """A constant of chip_smoke.py, read from its source, which imports
+    CUDA-only code."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     value, = (n.value for n in tree.body if isinstance(n, ast.Assign)
-              and [getattr(t, "id", None) for t in n.targets]
-              == ["DRYRUN_DEPTH_CUT"])
-    return {f"{a}/{s}": ref for a, _, s, ref in ast.literal_eval(value)}
+              and [getattr(t, "id", None) for t in n.targets] == [name])
+    return ast.literal_eval(value)
+
+
+def _chip_smoke_depth_cut() -> dict:
+    """chip_smoke.py's ``DRYRUN_DEPTH_CUT`` (the reference's counts the
+    card's gate holds the port to): {arch/shape: [reference FLOPs a rank,
+    reference collective bytes a rank]}."""
+    return {f"{a}/{s}": [flops, coll] for a, _, s, flops, coll
+            in _chip_smoke_constant("DRYRUN_DEPTH_CUT")}
 
 
 @pytest.mark.parametrize("arch,layers,shape", DEPTH_CUT, ids=[
     "-".join(map(str, (a, *_depths(n), s))) for a, n, s in DEPTH_CUT])
 def test_depth_cut_cells_do_the_references_work_a_rank(arch, layers, shape):
-    """zamba2-7b's and rwkv6-3b's per-rank FLOPs at full width, cut in
-    depth, on both production meshes: at most 1.5x (and at least half)
-    the reference's, and a train step's halving from (16, 16) to (2, 16,
-    16) with the batch it splits; for a pair of depths, the work of the
-    layers between them. chip_smoke.py's copy of the reference's count for
-    a cell it gates is the count measured here."""
+    """Per-rank FLOPs at full width, cut in depth, on both production
+    meshes: at most 1.5x (and at least half) the reference's, and a train
+    step's halving from (16, 16) to (2, 16, 16) with the batch it splits;
+    for a pair of depths, the work of the layers between them. Collective
+    bytes a rank (an all-gather charged its result) at most ``COLL_MAX``
+    of the reference's, a layer's and a whole decode cell's (an open
+    cell's under ``COLL_OPEN``).
+    chip_smoke.py's copy of the reference's counts for a cell it gates is
+    the count measured here."""
     got = _depth_cut_counts()
     meshes = (False, True) if shape in BOTH_MESHES else (False,)
-    port, ref = ({mp: _cut(got[k], arch, layers, shape, mp) for mp in meshes}
-                 for k in ("port", "reference"))
+    (port, ref), (port_coll, ref_coll) = (
+        [{mp: _cut(got[k], arch, layers, shape, mp, what) for mp in meshes}
+         for k in ("port", "reference")] for what in (0, 1))
     for multi_pod in meshes:
         assert 0.5 * ref[multi_pod] <= port[multi_pod] <= 1.5 * ref[
             multi_pod], (arch, layers, shape, multi_pod, port, ref)
+        assert 0 < port_coll[multi_pod] <= COLL_OPEN.get(
+            (arch, shape), COLL_MAX) * ref_coll[multi_pod], (
+            arch, layers, shape, multi_pod, port_coll, ref_coll)
     copied = _chip_smoke_depth_cut().get(f"{arch}/{shape}")
     if copied is not None:
-        assert copied == ref[False]
+        assert copied == [ref[False], ref_coll[False]]
     if shape == "train_4k":
         ratio = port[True] / port[False]
         assert 0.49 <= ratio <= 0.52, ratio
+
+
+def test_chip_smoke_copies_the_references_whole_cell_counts():
+    """chip_smoke.py's ``DRYRUN_REFERENCE``, the reference's FLOPs and
+    collective bytes a rank of the whole cells its dry-run phase traces on
+    (16, 16), is the count the reference's compile gives here."""
+    got = _depth_cut_counts()["reference"]
+    copied = _chip_smoke_constant("DRYRUN_REFERENCE")
+    assert {(a, s) for a, _, s in CHIP_SMOKE_CELLS} == set(copied)
+    for arch, layers, shape in CHIP_SMOKE_CELLS:
+        assert copied[(arch, shape)] == got[
+            f"{arch}/{layers}/{shape}/False"], (arch, shape)
 
 
 def _record(directory, arch, shape, mesh, flops, coll):
     os.makedirs(directory, exist_ok=True)
     rec = {"arch": arch, "shape": shape, "mesh": mesh, "roofline": {
         "hlo_flops_per_device": flops, "collective_bytes_per_device": coll,
+        "collective_breakdown": {"all-reduce": coll / 4,
+                                 "all-gather": coll / 2},
         "t_compute_s": flops / 989e12, "t_memory_s": 0.5,
         "t_collective_s": coll / 450e9, "useful_flops_ratio": 0.25},
         "memory": {"argument_size_in_bytes": 2**30,
@@ -621,8 +681,9 @@ def _record(directory, arch, shape, mesh, flops, coll):
 
 def test_dryrun_vs_reference_reads_both_packages_records(tmp_path):
     """``scripts/torch/dryrun_vs_reference.py``: each cell's per-rank FLOPs
-    against the reference's record of the same cell and mesh, and against
-    an earlier run of the port."""
+    and collective bytes against the reference's record of the same cell
+    and mesh, with both packages' bytes by kind, and against an earlier
+    run of the port."""
     import importlib.util
     path = ROOT / "scripts" / "torch" / "dryrun_vs_reference.py"
     spec = importlib.util.spec_from_file_location("dryrun_vs_reference", path)
@@ -637,33 +698,47 @@ def test_dryrun_vs_reference_reads_both_packages_records(tmp_path):
                      "--baseline", base])
     assert (row["arch"], row["shape"]) == ("rwkv6-3b", "train_4k")
     assert row["16x16"]["over_reference"] == 3.0
+    assert row["16x16"]["coll_over_reference"] == 0.4
+    assert row["16x16"]["breakdown"] == {
+        "port": {"all-reduce": 5e8, "all-gather": 1e9},
+        "reference": {"all-reduce": 1.25e9, "all-gather": 2.5e9}}
     assert row["16x16"]["flops_over_baseline"] == 0.5
     assert row["16x16"]["collectives_over_baseline"] == 0.5
     assert row["2x16x16"]["over_reference"] is None
+    assert row["2x16x16"]["coll_over_reference"] is None
     assert row["16x16"]["gib"] == [1.0, 2.0]
     assert mod.table([row]).splitlines()[2].startswith(
         "| rwkv6-3b x train_4k | 1.00 / 2.00 | 303.3 / 500.0 / 4.4 | 0.250 "
-        "| 3.000 | 0.500, 0.500 | 1.00 / 2.00 |")
+        "| 3.000 | 0.400 | 0.500, 0.500 | 1.00 / 2.00 |")
 
 
 def test_dryrun_split_attributes_every_flop():
     """``scripts/torch/dryrun_split.py``: a cell's per-rank FLOPs split by
-    op, autograd node and model line add up to the cell's count."""
+    op, autograd node and model line add up to the cell's count, and its
+    collective bytes split by kind, node and line to the cell's bytes of
+    each kind."""
     path = ROOT / "scripts" / "torch" / "dryrun_split.py"
     got = _in_world(256, f"""
+        import collections
         import importlib.util
         spec = importlib.util.spec_from_file_location("dryrun_split",
                                                       {str(path)!r})
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        cost, flops = mod.split("rwkv6-3b", "decode_32k", 1, 256)
+        cost, flops, coll = mod.split("rwkv6-3b", "decode_32k", 1, 256)
         (op, node, site, _), n = flops.most_common(1)[0]
+        kinds = collections.Counter()
+        for (kind, _, _, _), b in coll.items():
+            kinds[kind] += b
         print(json.dumps({{"total": cost.flops, "sum": sum(flops.values()),
-                           "top": [op, node, site, n]}}))
+                           "top": [op, node, site, n],
+                           "coll": cost.collectives, "kinds": kinds}}))
     """)
     assert got["sum"] == got["total"] > 0
     op, node, site, n = got["top"]
     assert (op, node) == ("mm.default", "fwd") and site.startswith("rwkv6")
+    assert sum(got["coll"].values()) > 0
+    assert got["kinds"] == {k: v for k, v in got["coll"].items() if v}
 
 
 # -- a gloo world: MoE's F slices and the dense model across real ranks -------
@@ -738,11 +813,13 @@ DENSE = [(a, a, {}) for a in ("qwen2-1.5b", "chatglm3-6b")]
 # heads that 'model' = 2 does not divide: 5 RWKV heads (3 and 2 a rank),
 # 5 Mamba heads (in_proj's 357 columns replicated), 1 KV head (read by
 # both ranks, cached by rank 0); and an MLP width it does not divide (255:
-# every rank runs the whole MLP)
+# every rank runs the whole MLP); and a vocabulary padded from 250 to 256,
+# whose logits' columns are re-cut to chunks of 125 (3 move rank)
 UNEVEN = [("rwkv6-3b/5-heads", "rwkv6-3b", {"d_model": 160}),
           ("zamba2-7b/5-heads", "zamba2-7b", {"d_model": 80, "d_ff": 192}),
           ("qwen3-0.6b/1-kv-head", "qwen3-0.6b", {"n_kv_heads": 1}),
-          ("qwen2-1.5b/odd-ff", "qwen2-1.5b", {"d_ff": 255})]
+          ("qwen2-1.5b/odd-ff", "qwen2-1.5b", {"d_ff": 255}),
+          ("qwen3-0.6b/padded-vocab", "qwen3-0.6b", {"vocab_size": 250})]
 
 
 def models_on(m, cases):
@@ -804,6 +881,7 @@ def models_on(m, cases):
                                 m, batch_spec(m, 1, 2)).place(tok))
                     row["decode_close"].append(bool(torch.allclose(
                         full(d_logits), logits, rtol=1e-4, atol=1e-5)))
+            row["logits_local"] = list(d_logits.to_local().shape)
         out[name] = row
     return out
 
@@ -1009,18 +1087,22 @@ def test_fake_world_peak_bytes_follow_the_allocator():
 
 @pytest.mark.parametrize("case", ["rwkv6-3b/5-heads", "zamba2-7b/5-heads",
                                   "qwen3-0.6b/1-kv-head",
-                                  "qwen2-1.5b/odd-ff"])
+                                  "qwen2-1.5b/odd-ff",
+                                  "qwen3-0.6b/padded-vocab"])
 def test_uneven_head_shares_across_gloo_ranks(case):
     """Heads (or an MLP width) that 'model' does not divide, on a (1, 2)
     mesh of processes against one process: each rank runs its own whole
     heads (3 and 2 of 5; rank 1 no KV head of its own), or the whole MLP,
-    within the bounds above."""
+    within the bounds above. A padded vocabulary's decode logits stay
+    split over 'model', 125 columns of 250 on rank 0."""
     got = _gloo_world(2)["uneven"][case]
     plain, meshed = got["loss"]
     assert np.isclose(meshed, plain, rtol=RTOL, atol=ATOL)
     assert got["grads_close"]
     assert got["decode_close"] == [True] * 3
     assert got.get("prefill_close", [True] * 3) == [True] * 3
+    if case.endswith("padded-vocab"):
+        assert got["logits_local"] == [2, 125]
 
 
 @pytest.mark.parametrize("case", ["4-heads", "5-heads", "whole-over-model"])

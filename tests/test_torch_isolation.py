@@ -13,8 +13,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-#: the port's entry points outside src/: examples, paper scripts and the
+#: the port's entry points outside src/: examples, paper scripts, the
 #: dry-run's tools (dryrun_split, dryrun_vs_reference, temp_vs_allocator)
+#: and plain_outputs
 ENTRY_POINTS = sorted([*(ROOT / "examples" / "torch").glob("*.py"),
                        *(ROOT / "scripts" / "torch").glob("*.py")])
 FORBIDDEN = re.compile(
@@ -55,7 +56,7 @@ def test_import_loads_no_jax_and_no_reference_package():
 def test_entry_points_load_no_jax_and_no_reference_package():
     """Loading every file of examples/torch/ and scripts/torch/ (their
     imports run, their main does not) brings in neither JAX nor repro."""
-    assert len(ENTRY_POINTS) == 9
+    assert len(ENTRY_POINTS) == 10
     code = ("import importlib.util, sys\n"
             f"for i, path in enumerate({[str(p) for p in ENTRY_POINTS]!r}):\n"
             "    spec = importlib.util.spec_from_file_location(f'e{i}', path)\n"

@@ -7,7 +7,8 @@ Exactness, fixed before the port was written:
     ``roofline_report``'s arithmetic on the same counts and hardware;
   * the reference's 1%: the FLOPs of a 10-trip loop (the port counts
     products only, the reference also 1 an element of ``tanh``);
-  * exact: collective operand bytes in a fake world;
+  * exact: collective bytes in a fake world, each collective charged
+    max(operand, result) as ``hlo_cost`` charges it;
   * 1%: ``peak_bytes`` of a reduced train step against the CPU allocator's
     peak above the step's arguments (the profiler's allocation records),
     every family; there is no reference number to hold it against (XLA's
@@ -110,8 +111,11 @@ def test_views_move_no_bytes():
 
 
 def test_collective_bytes_in_a_fake_world():
-    """``test_collective_regex``: an all-reduce of f32[128, 256] and an
-    all-gather of bf16[64] over a fake world of 4."""
+    """``test_collective_regex``: an all-reduce of f32[128, 256], an
+    all-gather of bf16[64] shards, a reduce-scatter of f32[256] and an
+    all-to-all of f32[32] over a fake world of 4, each charged
+    max(operand, result) as the reference's ``hlo_cost`` charges it: the
+    gather its bf16[256] result, in the tensor form and the list form."""
     code = textwrap.dedent("""
         import json
         import torch
@@ -124,10 +128,14 @@ def test_collective_bytes_in_a_fake_world():
         y = torch.randn(64, dtype=torch.bfloat16)
         out = torch.empty(256, dtype=torch.bfloat16)
         parts = [torch.empty(64, dtype=torch.bfloat16) for _ in range(4)]
+        z, zs = torch.randn(256), torch.empty(64)
+        w, ws = torch.randn(32), torch.empty(32)
 
         def step():
             dist.all_reduce(x)
             dist.all_gather_into_tensor(out, y)
+            dist.reduce_scatter_tensor(zs, z)
+            dist.all_to_all_single(ws, w)
 
         one = collective_bytes(analyze(step))
         listed = collective_bytes(analyze(lambda: dist.all_gather(parts, y)))
@@ -139,16 +147,81 @@ def test_collective_bytes_in_a_fake_world():
                          timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["one"] == {"all-reduce": 128 * 256 * 4, "all-gather": 64 * 2,
-                          "reduce-scatter": 0, "all-to-all": 0,
-                          "collective-permute": 0}
-    assert got["listed"]["all-gather"] == 64 * 2
-    # the reference's parser counts the same payloads from its HLO
+    assert got["one"] == {"all-reduce": 128 * 256 * 4,
+                          "all-gather": 256 * 2, "reduce-scatter": 256 * 4,
+                          "all-to-all": 32 * 4, "collective-permute": 0}
+    assert got["listed"]["all-gather"] == 256 * 2
+    # the reference's parser reads the same bytes from real HLO, where the
+    # result's shape comes before the op's name
     ref = r_analysis.collective_bytes_from_hlo(
-        "  %ar = f32[128,256]{1,0} all-reduce(%x), replica_groups={}\n"
-        "  %ag-start = bf16[64]{0} all-gather-start(%y), dimensions={0}\n")
+        "  %ar = f32[128,256]{1,0} all-reduce(%x), channel_id=1, "
+        "replica_groups={{0,1,2,3}}, to_apply=%add\n"
+        "  %ag = bf16[256]{0} all-gather(%y), channel_id=2, "
+        "replica_groups={{0,1,2,3}}, dimensions={0}\n")
     assert ref["all-reduce"] == got["one"]["all-reduce"]
     assert ref["all-gather"] == got["one"]["all-gather"]
+
+
+_COMPILED_COLLECTIVES = """
+import json
+import numpy as np
+import jax, jax.numpy as jnp
+import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
+from jax.sharding import Mesh, PartitionSpec as P
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro.distributed.sharding import shard_map
+from repro.roofline import hlo_cost
+from repro_torch.roofline import analyze, collective_bytes
+
+mesh = Mesh(np.array(jax.devices()[:4]), ("x",))
+
+
+def compiled(f, n):
+    return jax.jit(shard_map(f, mesh, in_specs=P("x"), out_specs=P("x"),
+                             check_vma=False)).lower(
+        jnp.zeros((n,), jnp.float32)).compile().as_text()
+
+
+ref = {"ag": hlo_cost.analyze(compiled(
+           lambda a: jax.lax.all_gather(a, "x", tiled=True), 256)),
+       "rs": hlo_cost.analyze(compiled(
+           lambda a: jax.lax.psum_scatter(a, "x", tiled=True), 1024))}
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+group = dist.group.WORLD
+a, b = torch.randn(64), torch.randn(256)
+ag, rs = torch.empty(256), torch.empty(64)
+port = {"ag": analyze(lambda: dist.all_gather_into_tensor(ag, a)),
+        "rs": analyze(lambda: dist.reduce_scatter_tensor(rs, b)),
+        "ag_functional": analyze(
+            lambda: funcol.all_gather_tensor(a, 0, group).wait()),
+        "rs_functional": analyze(
+            lambda: funcol.reduce_scatter_tensor(b, "sum", 0, group).wait())}
+print(json.dumps({"ref": {k: c.collectives for k, c in ref.items()},
+                  "port": {k: collective_bytes(c) for k, c in port.items()}}))
+"""
+
+
+def test_collectives_are_charged_as_the_reference_compiles_them():
+    """An all-gather of f32[64] shards into f32[256] and a reduce-scatter
+    of f32[256] into f32[64], compiled with ``shard_map`` on 4 forced host
+    devices and read by ``repro.roofline.hlo_cost.analyze``, and run by
+    ``c10d`` and the functional collectives on a fake world of 4 under
+    ``op_cost``: the same bytes, 1024 each (the gather's result, the
+    scatter's operand)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    out = subprocess.run([sys.executable, "-W", "ignore", "-c",
+                          _COMPILED_COLLECTIVES], env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    ref, port = got["ref"], got["port"]
+    assert ref["ag"]["all-gather"] == ref["rs"]["reduce-scatter"] == 1024
+    for form in ("", "_functional"):
+        assert port["ag" + form] == ref["ag"], form
+        assert port["rs" + form] == ref["rs"], form
 
 
 @pytest.mark.parametrize("chips,mft", [(None, None), (1, 3.1e15),
