@@ -9,10 +9,11 @@ of 256 ranks (512 with ``--multi-pod``) on meta tensors, with the config
 cut to ``--layers`` layers (full width; zamba2-7b's ``attn_every`` period
 is 6), and adds each op's FLOPs under (op, the autograd node running it or
 ``fwd``, the innermost ``repro_torch/models`` or ``training`` line that
-called it and its caller, the operands' local shapes), and each
-collective's bytes (as ``op_cost`` charges them) under (kind, node, site,
-shapes). Prints the totals, the collective bytes by kind, and the largest
-entries of each.
+called it and its caller, past the per-rank helpers of
+``models/common.py``, the operands' local shapes), and each collective's
+bytes (as ``op_cost`` charges them) under (kind, node, site, shapes).
+Prints the totals, the collective bytes by kind, and the largest entries
+of each.
 """
 from __future__ import annotations
 
@@ -26,12 +27,16 @@ import traceback
 import torch
 
 SITES = ("repro_torch/models", "repro_torch/training")
+COMMON = os.path.join("repro_torch", "models", "common.py")
 
 
 def _site() -> str:
-    """The two innermost model lines on the stack, inner first."""
+    """The two innermost model lines on the stack, inner first, past the
+    per-rank helpers of ``models/common.py`` (``gather``, ``psum``,
+    ``recut``, ...), so that a collective names the line that asked."""
     frames = [f for f in traceback.extract_stack()
-              if any(s in f.filename for s in SITES)]
+              if any(s in f.filename for s in SITES)
+              and not f.filename.endswith(COMMON)]
     return "<".join(f"{os.path.basename(f.filename)}:{f.lineno}"
                     for f in frames[:-3:-1]) or "?"
 

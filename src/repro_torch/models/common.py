@@ -13,13 +13,14 @@ default), norms computed in fp32.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import (ACTIVE_MESH, BATCH_AXES, data_size,
-                                    placements, spec)
+from ..distributed.sharding import (ACTIVE_MESH, BATCH_AXES, batch_axes,
+                                    data_size, placements, spec)
 
 
 # --------------------------------------------------------------------------
@@ -187,17 +188,15 @@ def psum_scatter(t, mesh, axes: tuple, dim: int):
 
 def gather(t, mesh, s: tuple, dim: int, shape, *, split=True):
     """This rank's ``t``, laid out as spec ``s`` (which splits dimension
-    ``dim`` over 'model', or over other mesh axes) in a tensor of global
-    ``shape``, whole along ``dim`` on every rank of those axes (an
-    all-gather). Where ranks use the whole for their own shares of the
-    work (``split``: True for 'model', or the axes whose ranks do), the
-    gradient is those ranks' sum, of which each keeps its own slice (a
-    reduce-scatter); else each keeps its slice of its own."""
+    ``dim`` over 'model') in a tensor of global ``shape``, whole along
+    ``dim`` on every rank of 'model' (an all-gather). Where the ranks use
+    the whole for their own shares of the work (``split``), the gradient
+    is their sum, of which each keeps its own slice (a reduce-scatter);
+    else each keeps its slice of its own."""
     whole = list(s)
     whole[dim] = None
     return local_shard(from_local(t, mesh, s, shape), mesh, spec(*whole),
-                       split=(MODEL_AXIS,) if split is True else (
-                           tuple(split) if split else False))
+                       split=(MODEL_AXIS,) if split else False)
 
 
 def whole(t, mesh, split: tuple = ()):
@@ -277,14 +276,21 @@ def model_rank(mesh) -> int:
     return mesh.device_mesh.get_local_rank(MODEL_AXIS)
 
 
+def _chunk(n: int, parts: int, i: int) -> tuple:
+    """The [lo, hi) of chunk ``i`` of ``n`` entries split in ``parts`` as
+    DTensor splits them: ceil(n / parts) each, the last ones short or
+    empty."""
+    c = -(-n // parts)
+    return min(i * c, n), min(i * c + c, n)
+
+
 def model_ranges(n: int, mesh, split: bool = True):
     """rank -> its [lo, hi) of ``n`` entries that 'model' splits
     (``own_range``'s chunks of ceil(n / tp)); every rank's is all of them
     with ``mesh`` None, or where ``split`` is false."""
     if mesh is None or not split:
         return lambda r: (0, n)
-    c = -(-n // mesh.shape.get(MODEL_AXIS, 1))
-    return lambda r: (min(r * c, n), min(r * c + c, n))
+    return functools.partial(_chunk, n, mesh.shape.get(MODEL_AXIS, 1))
 
 
 def recut(t, mesh, held, want) -> list:
@@ -334,6 +340,108 @@ def recut(t, mesh, held, want) -> list:
     return [t[..., :0] if not parts else parts[0][1] if len(parts) == 1
             else torch.cat([p for _, p in sorted(parts, key=lambda x: x[0])],
                            dim=-1) for parts in out]
+
+
+@functools.lru_cache(maxsize=None)
+def _crossing(n: int, sizes: tuple, me: tuple) -> tuple:
+    """What the rank at coordinates ``me`` of two mesh dimensions of
+    ``sizes`` sends and gets when a last dimension of ``n`` columns, split
+    over the first (``_chunk``) and alike on the ranks of the second,
+    moves to a split over the second, alike on the ranks of the first:
+    (sent, got), each ((the other rank's coordinates, lo, hi), ...) in
+    column order. The rank at (i, j) takes its chunk j from the ranks
+    that hold it whose second coordinate is (i * r + j % r) % sizes[1],
+    r = max(sizes[1] // sizes[0], 1): a transposition where the sizes are
+    equal, each rank swapping its chunk with one other. What it holds
+    itself is in ``got`` and not in ``sent``."""
+    a, b = sizes
+    r = max(b // a, 1)
+
+    def sources(i, j):
+        lo, hi = _chunk(n, b, j)
+        return [((k, (i * r + j % r) % b), max(lo, s), min(hi, e))
+                for k in range(a) for s, e in [_chunk(n, a, k)]
+                if min(hi, e) > max(lo, s)]
+    sent = tuple((dst, lo, hi) for dst in ((i, j) for i in range(a)
+                                           for j in range(b)) if dst != me
+                 for src, lo, hi in sources(*dst) if src == me)
+    return sent, tuple(sources(*me))
+
+
+def _cross(t, mesh, n: int, dims: tuple):
+    """This rank's ``t``, whose last dimension is its chunk of ``n``
+    columns split over the ``DeviceMesh`` dimension ``dims[0]``, as its
+    chunk of them split over ``dims[1]`` (``_crossing``), in one
+    all-to-all over the ranks of the two dimensions."""
+    from torch.distributed import get_group_rank
+    from torch.distributed._functional_collectives import (
+        all_to_all_single_autograd as all_to_all_single)
+    dm = mesh.device_mesh
+    sizes = tuple(dm.size(d) for d in dims)
+    me = tuple(dm.get_local_rank(d) for d in dims)
+    sent, got = _crossing(n, sizes, me)
+    held = _chunk(n, sizes[0], me[0])[0]
+    # DeviceMesh has no public group over several of its dimensions
+    group = dm[tuple(dm.mesh_dim_names[d] for d in sorted(dims))
+               ]._flatten().get_group()
+    coords = list(dm.get_coordinate())
+
+    def peer(c) -> int:
+        for d, i in zip(dims, c):
+            coords[d] = i
+        return get_group_rank(group, int(dm.mesh[tuple(coords)]))
+    local = t.movedim(-1, 0)
+    size = group.size()
+    ins, outs = [[] for _ in range(size)], [0] * size
+    for dst, lo, hi in sent:
+        ins[peer(dst)].append(local[lo - held:hi - held])
+    for src, lo, hi in got:
+        if src != me:
+            outs[peer(src)] += hi - lo
+    recv = all_to_all_single(
+        torch.cat([p for ps in ins for p in ps] or [local[:0]]), outs,
+        [sum(p.shape[0] for p in ps) for ps in ins], group)
+    chunks = list(torch.split(recv, outs))
+    taken = [0] * size
+    pieces = []
+    for src, lo, hi in got:
+        if src == me:
+            pieces.append(local[lo - held:hi - held])
+        else:
+            g = peer(src)
+            pieces.append(chunks[g][taken[g]:taken[g] + hi - lo])
+            taken[g] += hi - lo
+    return torch.cat(pieces).movedim(0, -1)
+
+
+class _Cross(torch.autograd.Function):
+    """``_cross``, whose gradient crosses back."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, n, dims):
+        ctx.back = (mesh, n, dims[::-1])
+        return _cross(t, mesh, n, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cross(g, *ctx.back), None, None, None
+
+
+def model_to_batch(t, mesh, n: int):
+    """This rank's ``t``, whose last dimension is its 'model' chunk of
+    ``n`` columns (the ranks of the batch axes alike), as its chunk of
+    them split over the batch axes (the ranks of 'model' alike). DTensor
+    would gather the columns over 'model' for that; here each rank takes
+    its chunk from the one or few ranks that hold it and are paired with
+    it (``_crossing``), as XLA compiles the reference's move to
+    collective-permutes, in one all-to-all over the mesh. The gradient
+    moves back the same way, so each rank's columns get it once. ``t``
+    itself with ``mesh`` None."""
+    if mesh is None:
+        return t
+    names = mesh.device_mesh.mesh_dim_names
+    return _Cross.apply(t, mesh, n, (
+        names.index(MODEL_AXIS), names.index("_".join(batch_axes(mesh)))))
 
 
 def first_columns(t, n: int):
@@ -404,11 +512,20 @@ def rms_norm(x, weight, eps: float = 1e-5, mesh=None, axes: tuple = (),
     return (x * weight.float()).to(dt)
 
 
-def layer_norm(x, weight, bias, eps: float = 1e-5):
+def layer_norm(x, weight, bias, eps: float = 1e-5, mesh=None,
+               axes: tuple = (), n: int = 0):
+    """LayerNorm over the last dimension; where the ranks of the mesh
+    ``axes`` each hold their own channels of it (``n`` in all), its mean
+    and variance add their sums."""
     dt = x.dtype
     x = x.float()
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+
+    def mean(t):
+        return (torch.mean(t, dim=-1, keepdim=True) if not axes else
+                psum(torch.sum(t, dim=-1, keepdim=True), mesh, axes,
+                     split=True) / n)
+    mu = mean(x)
+    var = mean(torch.square(x - mu))
     x = (x - mu) * torch.rsqrt(var + eps)
     return (x * weight.float() + bias.float()).to(dt)
 

@@ -25,8 +25,8 @@ import torch.nn.functional as F
 from ..distributed.sharding import batch_axes, data_size, spec
 from .common import (MODEL_AXIS, dense_init, from_local, gather,
                      heads_over_ranks, local_shard, logical, model_axes,
-                     model_ranges, own_part, own_range, process_mesh, psum,
-                     psum_scatter, recut, rms_norm)
+                     model_ranges, model_to_batch, own_part, own_range,
+                     process_mesh, psum, psum_scatter, recut, rms_norm)
 
 WRAW_CLAMP = 0.65
 CHUNK = 32
@@ -130,7 +130,10 @@ class _Ranks:
     axes split the column-parallel products' contracted channels instead
     (``kax``; ``k`` their spec entry), and the row-parallel products'
     output channels (``rmm``), as XLA partitions the reference's decode
-    of one sequence."""
+    of one sequence. A block's output (``out``, the residual stream's
+    layout between blocks) is split as its input: by rows, or for one
+    sequence its channels over ``kax``, which the next block's products
+    contract and its norms reduce."""
 
     def __init__(self, mesh, batch: int, *dims):
         self.mesh = mesh
@@ -141,6 +144,7 @@ class _Ranks:
         self.kax = () if split else batch_axes(mesh)
         self.k = spec(self.kax)[0]
         self.rows = logical("batch", None, None) if split else (None,) * 3
+        self.out = self.rows[:2] + (self.k,)
 
     def input(self, x):
         """An input (B, ..., D) as this rank's rows and its contracted
@@ -184,15 +188,45 @@ class _Ranks:
         row-parallel ``w``, the partial sums added over 'model': every
         output channel, or with ``own`` this rank's (a reduce-scatter).
         Over ``kax`` each rank computes its share of the output channels,
-        and the shares, summed over 'model', are gathered."""
+        summed over 'model', which stays its share (``out``)."""
         y = a @ self.part(w, (self.cols, self.k)).to(a.dtype)
+        if own and not self.kax:
+            return psum_scatter(y, self.mesh, self.cm, 2)
+        return psum(y, self.mesh, self.cm)
+
+    def out_cols(self, t):
+        """(B_l, S, n) the columns this rank holds of a column-parallel
+        product (its chunk over 'model', or all n) -> those of its share
+        of the block's output (``out``): the same, or over ``kax`` its
+        share of them, taken from the ranks that hold it
+        (``model_to_batch``) or sliced from all of them."""
         if not self.kax:
-            return (psum_scatter(y, self.mesh, self.cm, 2) if own else
-                    psum(y, self.mesh, self.cm))
-        y = gather(psum(y, self.mesh, self.cm), self.mesh,
-                   (None, None, self.k), 2, y.shape[:2] + (w.shape[1],),
-                   split=own and self.cm)
-        return self.own_cols(y) if own else y
+            return t
+        if self.cm:
+            return model_to_batch(t, self.mesh,
+                                  t.shape[-1] * self.mesh.shape[MODEL_AXIS])
+        return local_shard(from_local(t, self.mesh, self.rows, t.shape),
+                           self.mesh, self.out, split=False)
+
+    def residual(self, x):
+        """The residual stream ``x`` (B, S, D), whole over ``kax``, as
+        ``out`` lays it out (a rank's share is a slice of it)."""
+        if not self.kax:
+            return x
+        return from_local(local_shard(x, self.mesh, self.out, split=False),
+                          self.mesh, self.out, x.shape)
+
+    def norm(self, norm, x, p):
+        """``norm(x, p)`` of the residual stream ``x`` as ``out`` lays it
+        out; over ``kax`` each rank normalises its share, and ``norm``
+        also takes (mesh, axes, channels) to add its sums across them."""
+        if not self.kax:
+            return norm(x, p)
+        w = {k: local_shard(v, self.mesh, (self.k,), split=False)
+             for k, v in p.items()}
+        y = norm(local_shard(x, self.mesh, self.out, split=False), w,
+                 self.mesh, self.kax, x.shape[-1])
+        return from_local(y, self.mesh, self.out, x.shape)
 
     def gather_cols(self, t, batch, split=True):
         """(B_l, S, D / tp) this rank's channels -> every channel, which
@@ -225,12 +259,14 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     decay of those heads, whose channels that lie on other ranks move to
     it (``recut``); its output moves back to the ranks' channels for the
     gate and the row-parallel Wo, whose partial sums are all-reduced. A
-    decode state's heads are split only where its spec
-    splits them (the decode cache of 40 heads is replicated on 16 ranks,
-    and a split would gather the new state each step). Where the batch
-    axes split the contractions (one sequence) they also split Wo's
-    output channels, and every gradient before Wo is partial over
-    them."""
+    decode state's heads are split where its spec splits them, and for
+    one sequence, whose new state comes back split so, as the reference's
+    step returns it (the rank's heads of a replicated state are a slice
+    of it); a split batch's decode state that the cache replicates (40
+    heads on 16 ranks) stays whole. Where the batch axes split the
+    contractions (one sequence) they also split Wo's output channels,
+    which the output keeps (``_Ranks.out``), and every gradient before Wo
+    is partial over them."""
     mesh = process_mesh()
     b, s, d = x.shape
     h = d // head_dim
@@ -248,7 +284,8 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
     logw = -torch.exp(torch.clamp(wraw, max=WRAW_CLAMP))  # <= -0 per channel
 
     h0, h1 = own_range(h, mesh) if rk.cm and (
-        S0 is None or heads_over_ranks(mesh, h) is not None) else (0, h)
+        S0 is None or rk.kax or heads_over_ranks(mesh, h) is not None) \
+        else (0, h)
     split = h1 - h0 < h
     cols = model_ranges(d, mesh)
 
@@ -275,7 +312,7 @@ def _tmix(p, x, x_prev, S0, head_dim: int):
          if split else rk.own_cols(y))
     y = y * rk.part(p["ln_w"], (rk.cols,))[None, None, :]
     y = rk.rmm(y * F.silu(g), p["Wo"]).to(x.dtype)
-    return (from_local(y, mesh, rk.rows, (b, s, d)),
+    return (from_local(y, mesh, rk.out, (b, s, d)),
             (x[:, -1:], from_local(S, mesh, hs,
                                    (b, h, head_dim, head_dim))))
 
@@ -289,9 +326,11 @@ def apply_rwkv_cmix(p, x, x_prev=None):
     """x (B, S, D) -> (y, last_x). On a mesh of processes each rank runs it
     on its own batch rows and its own columns of the column-parallel Wk /
     Wr (rows of the row-parallel Wv): the partial sums of the Wv product
-    are reduce-scattered to the rank's channels (for one sequence, each
-    rank's share of its output channels), gated by its own r, and the
-    result gathered whole."""
+    are reduce-scattered to the rank's channels, gated by its own r, and
+    the result gathered whole. For one sequence each rank's share of the
+    output channels is summed over 'model' and gated by r's same
+    channels, which move to it (``_Ranks.out_cols``), and stays its
+    share."""
     mesh = process_mesh()
     b, s, d = x.shape
     rk = _Ranks(mesh, b, d, p["Wk"].shape[1])
@@ -299,9 +338,10 @@ def apply_rwkv_cmix(p, x, x_prev=None):
     k = rk.mm(_mix(xf, xsf, rk.vec(p["mu_k"])), p["Wk"], split=True)
     r = rk.mm(_mix(xf, xsf, rk.vec(p["mu_r"])), p["Wr"])
     kv = rk.rmm(torch.square(F.relu(k)), p["Wv"], own=True)
-    out = (kv * torch.sigmoid(r)).to(x.dtype)
-    return from_local(rk.gather_cols(out, b, split=False), mesh, rk.rows,
-                      (b, s, d)), x[:, -1:]
+    out = (kv * torch.sigmoid(rk.out_cols(r))).to(x.dtype)
+    if not rk.kax:
+        out = rk.gather_cols(out, b, split=False)
+    return from_local(out, mesh, rk.out, (b, s, d)), x[:, -1:]
 
 
 def decode_rwkv_tmix(p, x, state, head_dim: int = 64):

@@ -7,9 +7,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .common import embed_init, shard
-from .rwkv6 import (apply_rwkv_cmix, apply_rwkv_tmix, decode_rwkv_tmix,
-                    head_logits, init_rwkv_cmix, init_rwkv_tmix)
+from .common import embed_init, process_mesh, shard
+from .rwkv6 import (_Ranks, apply_rwkv_cmix, apply_rwkv_tmix,
+                    decode_rwkv_tmix, head_logits, init_rwkv_cmix,
+                    init_rwkv_tmix)
 from .transformer import (_apply_norm, _dtype, _embed, _init_norm,
                           chunked_ce_loss, init_stacked, layers, place,
                           remat)
@@ -37,6 +38,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                                   generator=gen)
                       / cfg.d_model ** 0.5).to(dev)
     return params
+
+
+def _norm(cfg: ModelConfig, p, x):
+    """The norm of the residual stream ``x`` as the blocks lay it out
+    (``rwkv6._Ranks.out``): on a mesh of processes one sequence's channels
+    are split over the batch axes, and each rank normalises its share."""
+    return _Ranks(process_mesh(), x.shape[0]).norm(
+        lambda x, p, *split: _apply_norm(cfg, p, x, *split), x, p)
 
 
 def forward(params, cfg: ModelConfig, tokens):
@@ -83,22 +92,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int = 0, dtype=None,
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens):
-    """tokens (B,) -> (logits (B, V) float32, cache); the states are
-    written in place in the cache's tensors."""
+    """tokens (B,) -> (logits (B, V) float32, cache). The states are
+    written in place in the cache's tensors, but where the step lays them
+    out otherwise: one sequence on a mesh of processes, whose token
+    shifts come out split over the batch axes and WKV states by heads
+    over 'model' (as the reference's step returns its state). The step
+    then returns new stacks of them, which a next step takes as they
+    come."""
     x = _embed(params, cfg, tokens)[:, None, :]
+    rk = _Ranks(process_mesh(), x.shape[0])
+    x = rk.residual(x)
     tx, cx, S = cache["tmix_x"], cache["cmix_x"], cache["S"]
+    new = []
     for i, p in enumerate(layers(params["blocks"])):
-        xin = _apply_norm(cfg, p["norm1"], x)
+        xin = _norm(cfg, p["norm1"], x)
         y, st = decode_rwkv_tmix(p["tmix"], xin,
                                  {"x": tx[i].to(xin.dtype), "S": S[i]},
                                  head_dim=cfg.rwkv_head_dim)
         x = x + y
-        xin2 = _apply_norm(cfg, p["norm2"], x)
+        xin2 = _norm(cfg, p["norm2"], x)
         y2, cx_new = apply_rwkv_cmix(p["cmix"], xin2, cx[i].to(xin2.dtype))
         x = x + y2
-        tx[i] = st["x"].to(tx.dtype)
-        cx[i] = cx_new.to(cx.dtype)
-        S[i] = st["S"]
-    h = _apply_norm(cfg, params["final_norm"], x)[:, 0]
+        states = (st["x"].to(tx.dtype), cx_new.to(cx.dtype), st["S"])
+        if rk.kax:
+            new.append(states)
+        else:
+            tx[i], cx[i], S[i] = states
+    if new:
+        tx, cx, S = (torch.stack(t) for t in zip(*new))
+    h = _norm(cfg, params["final_norm"], x)[:, 0]
     logits = head_logits(h, params["head"])
-    return logits, {**cache, "pos": int(cache["pos"]) + 1}
+    return logits, {**cache, "tmix_x": tx, "cmix_x": cx, "S": S,
+                    "pos": int(cache["pos"]) + 1}

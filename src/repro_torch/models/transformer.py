@@ -73,10 +73,12 @@ def _init_norm(cfg: ModelConfig, d: int):
     return {"w": w}
 
 
-def _apply_norm(cfg: ModelConfig, p, x):
+def _apply_norm(cfg: ModelConfig, p, x, *split):
+    """``cfg``'s norm of ``x``; ``split`` (mesh, axes, channels) where the
+    ranks of those mesh axes each hold their own channels of it."""
     if cfg.norm == "layernorm":
-        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
-    return rms_norm(x, p["w"], cfg.norm_eps)
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps, *split)
+    return rms_norm(x, p["w"], cfg.norm_eps, *split)
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig):
@@ -333,11 +335,32 @@ def _embed(params, cfg: ModelConfig, tokens):
     backward sums a token's repeats in a fixed order on the CPU and the
     card; indexing's backward (``index_put_`` with accumulate) adds them
     atomically across CPU threads, so two identical training runs could
-    differ."""
-    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
-    x = F.embedding(tokens, params["embed"]).to(_dtype(cfg))
-    # a vocab-sharded table gives partial rows; whole them before anything
-    # else (a norm, the vlm's splice) meets them
+    differ.
+
+    On a mesh of processes Megatron's vocab-parallel embedding: each rank
+    looks its own tokens up in its own rows of the table (the vocabulary
+    split over 'model'), zeroes the tokens outside them, and the ranks'
+    rows are all-reduced over 'model' in ``cfg.dtype`` (exact: one rank
+    contributes each token). The table's gradient is then the rank's own
+    rows, partial over the batch axes only, as the reference's."""
+    table = params["embed"]
+    mesh = process_mesh()
+    tokens = torch.as_tensor(tokens, device=table.device).long()
+    vax = shard_axes(table, mesh, 0) if mesh is not None else ()
+    rows = (batch_rows(tokens.shape[0], mesh),) + (None,) * (tokens.dim() - 1)
+    tl = local_shard(tokens, mesh, rows)
+    wl = local_shard(table, mesh, spec(vax, None),
+                     split=batch_axes(mesh) if rows[0] else ())
+    if vax:
+        lo = shard_index(table, mesh, 0) * wl.shape[0]
+        mine = (tl >= lo) & (tl < lo + wl.shape[0])
+        x = F.embedding(torch.where(mine, tl - lo, 0), wl)
+        x = psum(torch.where(mine[..., None], x, 0).to(_dtype(cfg)), mesh,
+                 vax)
+    else:
+        x = F.embedding(tl, wl).to(_dtype(cfg))
+    x = from_local(x, mesh, rows + (None,), tuple(tokens.shape) + (
+        table.shape[1],))
     return shard(x, "batch", *([None] * (x.dim() - 1)))
 
 

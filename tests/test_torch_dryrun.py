@@ -338,20 +338,6 @@ def _world_of_4() -> dict:
         out = {{"mesh": list(mesh.sizes)}}
 
         # the reference's constraints: the forward without and with them
-        cfg = get_config("qwen3-0.6b").reduced()
-        params = _param_shapes(cfg)
-        params = _placed(params, param_shardings(mesh, cfg, params))
-        toks = _placed(input_specs(cfg, ShapeConfig("t", 16, 4, "prefill")),
-                       {{"tokens": NamedSharding(mesh, ("data", None))}})
-        fwd = build(cfg).forward
-        repaired = transformer.shard
-        transformer.shard = lambda x, *axes: x
-        try:
-            with activate_mesh(mesh):
-                fwd(params, toks)
-            out["before"] = "ran"
-        except Exception as e:
-            out["before"] = type(e).__name__
         seen = []
 
         def layout(t):
@@ -363,12 +349,45 @@ def _world_of_4() -> dict:
             if len(axes) == 3:
                 seen.append(layout(y))
             return y
-        transformer.shard = spy
-        with activate_mesh(mesh):
-            h = fwd(params, toks)
-        transformer.shard = repaired
-        out["after"] = layout(h)
-        out["boundaries"] = seen
+
+        def unconstrained(x, *axes):
+            if len(axes) == 3:
+                seen.append(layout(x))
+            return x
+
+        # the reduced arch's forward: its output's layout and each
+        # boundary's, or the error it raised
+        def forward(arch, constrain):
+            cfg = get_config(arch).reduced()
+            params = _param_shapes(cfg)
+            params = _placed(params, param_shardings(mesh, cfg, params))
+            batch = input_specs(cfg, ShapeConfig("t", 16, 4, "prefill"))
+            batch = _placed(batch, {{k: NamedSharding(
+                mesh, ("data",) + (None,) * (v.dim() - 1))
+                for k, v in batch.items()}})
+            seen.clear()
+            transformer.shard = spy if constrain else unconstrained
+            try:
+                with activate_mesh(mesh):
+                    h = build(cfg).forward(params, batch)
+                return {{"after": layout(h), "boundaries": list(seen)}}
+            except Exception as e:
+                return type(e).__name__
+            finally:
+                transformer.shard = repaired
+        repaired = transformer.shard
+        out["after"] = forward("qwen3-0.6b", True)
+        out["before"] = forward("qwen3-0.6b", False)
+        out["encoder"] = [forward("hubert-xlarge", c) for c in (True, False)]
+        cfg = get_config("hubert-xlarge").reduced()
+        transformer.shard = lambda x, *axes: x
+        try:
+            _lower(cfg, ShapeConfig("t", 16, 4, "train"), mesh)
+            out["encoder_train"] = "ran"
+        except Exception as e:
+            out["encoder_train"] = type(e).__name__
+        finally:
+            transformer.shard = repaired
 
         for arch, kinds in {FAMILY_CELLS!r}:
             cfg = get_config(arch).reduced()
@@ -400,18 +419,32 @@ def _world_of_4() -> dict:
 
 
 def test_sharding_constraints_repair_the_forward_on_a_2x2_world():
-    """Without the reference's constraints the vocab-sharded embedding's
-    partial rows reach the first norm, which DTensor cannot reduce; with
-    them the hidden states are batch-sharded at every block boundary."""
+    """With the reference's constraints the hidden states are
+    batch-sharded at every block boundary. Without them a token model's
+    forward lays out every boundary alike, since its embedding and blocks
+    are per-rank code that leaves each output in that layout (the
+    vocab-parallel embedding gives whole rows, not partial ones); the
+    encoder's conv positional embedding leaves its output split over
+    'model', which without the constraints stays so at every boundary, and
+    its train step fails (DTensor cannot redistribute between a partial
+    sum and the partial mean the norms leave)."""
     got = _world_of_4()
     assert got["mesh"] == [2, 2]
-    assert got["before"] != "ran"
     # the embedding's, the stream's input (the reference's
     # transformer.py:205) and each of the 2 blocks' after attention and
     # after the MLP (:182, :184)
-    assert len(got["boundaries"]) == 6
-    assert all(p == [0, "R"] for p in got["boundaries"])
-    assert got["after"] == [0, "R"]
+    after = got["after"]
+    assert len(after["boundaries"]) == 6
+    assert all(p == [0, "R"] for p in after["boundaries"])
+    assert after["after"] == [0, "R"]
+    assert got["before"] == after
+    # the encoder's stream's input and its 2 blocks' boundaries: split
+    # over 'model' without the constraints, and the final norm's mean over
+    # the split channels left partial
+    with_, without = got["encoder"]
+    assert with_ == {"after": [0, "R"], "boundaries": [[0, "R"]] * 5}
+    assert without == {"after": [0, "P(avg)"], "boundaries": [[0, 2]] * 5}
+    assert got["encoder_train"] == "AssertionError"
 
 
 @pytest.mark.parametrize("arch,kinds", FAMILY_CELLS)
@@ -510,12 +543,8 @@ DEPTH_CUT = (("rwkv6-3b", 1, "prefill_32k"), ("zamba2-7b", 6, "prefill_32k"),
 BOTH_MESHES = ("train_4k", "long_500k", "decode_32k")
 #: the most collective bytes a rank the port may move, over the
 #: reference's ``collective_bytes_per_device`` (each package's all-reduce
-#: counted twice); a cell with an open fault is held under its own bound,
-#: so that it does not grow (rwkv6-3b's one sequence: its 40-head decode
-#: state stays whole on every rank and so needs r, k, v and the decay
-#: whole, where the reference's compiled step returns the state split)
+#: counted twice)
 COLL_MAX = 1.25
-COLL_OPEN = {("rwkv6-3b", "long_500k"): 4.0}
 #: chip_smoke.py's whole dry-run cells on (16, 16): (arch, layers, shape)
 CHIP_SMOKE_CELLS = (("qwen2-7b", 28, "decode_32k"),
                     ("olmoe-1b-7b", 16, "train_4k"))
@@ -629,8 +658,7 @@ def test_depth_cut_cells_do_the_references_work_a_rank(arch, layers, shape):
     step's halving from (16, 16) to (2, 16, 16) with the batch it splits;
     for a pair of depths, the work of the layers between them. Collective
     bytes a rank (an all-gather charged its result) at most ``COLL_MAX``
-    of the reference's, a layer's and a whole decode cell's (an open
-    cell's under ``COLL_OPEN``).
+    of the reference's, a layer's and a whole decode cell's.
     chip_smoke.py's copy of the reference's counts for a cell it gates is
     the count measured here."""
     got = _depth_cut_counts()
@@ -641,9 +669,8 @@ def test_depth_cut_cells_do_the_references_work_a_rank(arch, layers, shape):
     for multi_pod in meshes:
         assert 0.5 * ref[multi_pod] <= port[multi_pod] <= 1.5 * ref[
             multi_pod], (arch, layers, shape, multi_pod, port, ref)
-        assert 0 < port_coll[multi_pod] <= COLL_OPEN.get(
-            (arch, shape), COLL_MAX) * ref_coll[multi_pod], (
-            arch, layers, shape, multi_pod, port_coll, ref_coll)
+        assert 0 < port_coll[multi_pod] <= COLL_MAX * ref_coll[
+            multi_pod], (arch, layers, shape, multi_pod, port_coll, ref_coll)
     copied = _chip_smoke_depth_cut().get(f"{arch}/{shape}")
     if copied is not None:
         assert copied == [ref[False], ref_coll[False]]
@@ -716,7 +743,8 @@ def test_dryrun_split_attributes_every_flop():
     """``scripts/torch/dryrun_split.py``: a cell's per-rank FLOPs split by
     op, autograd node and model line add up to the cell's count, and its
     collective bytes split by kind, node and line to the cell's bytes of
-    each kind."""
+    each kind; a collective's line is the model's, past the helpers of
+    ``models/common.py``."""
     path = ROOT / "scripts" / "torch" / "dryrun_split.py"
     got = _in_world(256, f"""
         import collections
@@ -732,13 +760,133 @@ def test_dryrun_split_attributes_every_flop():
             kinds[kind] += b
         print(json.dumps({{"total": cost.flops, "sum": sum(flops.values()),
                            "top": [op, node, site, n],
-                           "coll": cost.collectives, "kinds": kinds}}))
+                           "coll": cost.collectives, "kinds": kinds,
+                           "sites": sorted({{(k, s) for k, _, s, _
+                                             in coll}})}}))
     """)
     assert got["sum"] == got["total"] > 0
     op, node, site, n = got["top"]
     assert (op, node) == ("mm.default", "fwd") and site.startswith("rwkv6")
     assert sum(got["coll"].values()) > 0
     assert got["kinds"] == {k: v for k, v in got["coll"].items() if v}
+    # a collective inside the per-rank helpers names the model line that
+    # called them (the decode step's gathers of r, k, v and the decay)
+    assert all("common.py" not in s for _, s in got["sites"]), got["sites"]
+    assert any(k == "all-gather" and s.startswith("rwkv6.py")
+               for k, s in got["sites"]), got["sites"]
+
+
+#: qwen3-0.6b's vocab-split table: a 'model' rank's rows of the 152,064
+#: (the padded vocabulary) and their f32 gradient's bytes, the reference's
+#: all-reduce f32[9504,1024]
+TABLE_ROWS, TABLE = (9504, 1024), 9504 * 1024 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_counts() -> dict:
+    """On fake worlds of 256 and 512 ranks (the production meshes):
+    qwen3-0.6b x train_4k at 1 layer split by ``dryrun_split.py`` (its
+    collectives by kind and shapes), and two decode steps of rwkv6-3b x
+    long_500k at 2 layers (one sequence), the second fed the cache the
+    first returned (each step's collective bytes a rank, all-reduces
+    counted twice)."""
+    path = ROOT / "scripts" / "torch" / "dryrun_split.py"
+    procs = {world: _spawn_world(world, f"""
+        import dataclasses
+        import importlib.util
+        from repro_torch.configs import SHAPES, get_config
+        from repro_torch.distributed import cache_shardings, param_shardings
+        from repro_torch.launch.dryrun import (_batch_shardings,
+                                               _param_shapes, _placed)
+        from repro_torch.launch.mesh import (activate_mesh,
+                                             make_production_mesh)
+        from repro_torch.models import build, cache_specs, input_specs
+        from repro_torch.roofline import analyze, roofline_report
+        spec = importlib.util.spec_from_file_location("dryrun_split",
+                                                      {str(path)!r})
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _, _, coll = mod.split("qwen3-0.6b", "train_4k", 1, {world})
+        out = {{"train": [[k, [list(t) for t in shapes], n]
+                          for (k, _, _, shapes), n in coll.items()]}}
+
+        mesh = make_production_mesh(multi_pod={world == 512},
+                                    torch_device="cpu")
+        cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=2)
+        shape = SHAPES["long_500k"]
+        model = build(cfg)
+        params = _param_shapes(cfg)
+        params = _placed(params, param_shardings(mesh, cfg, params))
+        cache = cache_specs(cfg, shape)
+        cache = _placed(cache, cache_shardings(mesh, cfg, cache, 1))
+        toks = input_specs(cfg, shape)
+        toks = _placed(toks, _batch_shardings(mesh, toks, 1))["tokens"]
+        out["steps"] = []
+        for _ in range(2):
+            new = []
+            with activate_mesh(mesh):
+                cost = analyze(lambda: new.append(
+                    model.decode_step(params, cache, toks)))
+            cache = new[0][1]
+            out["steps"].append(
+                roofline_report(cost)["collective_bytes_per_device"])
+        print(json.dumps(out))
+    """) for world in (256, 512)}
+    return {w: _read(p, 300) for w, p in procs.items()}
+
+
+@pytest.mark.parametrize("world", [256, 512])
+def test_train_step_reduces_only_the_ranks_rows_of_the_table(world):
+    """qwen3-0.6b x train_4k (1 layer, full width) as rank 0 of (16, 16)
+    and (2, 16, 16): the vocab-parallel embedding's gradient is the
+    rank's own rows of the table, which cross ranks once, in one
+    all-reduce over the batch axes of at most 1.25x the reference's
+    f32[9504,1024]; no collective moves the whole table (152,064 rows)."""
+    got = _serving_counts()[world]["train"]
+    assert not any([152064, 1024] in shapes for _, shapes, _ in got), got
+    table = [(k, n) for k, shapes, n in got if list(TABLE_ROWS) in shapes]
+    assert len(table) == 1 and table[0][0] == "all-reduce", table
+    assert 0 < table[0][1] <= COLL_MAX * TABLE, table
+
+
+@pytest.mark.parametrize("world", [256, 512])
+def test_second_decode_step_moves_no_more_than_the_first(world):
+    """rwkv6-3b x long_500k (one sequence, 2 layers, full width) as rank 0
+    of (16, 16) and (2, 16, 16): a second decode step, fed the cache the
+    first returned (its WKV states split over 'model' by heads, its token
+    shifts over the batch axes), moves no more collective bytes a rank
+    than the first, so a serving loop gathers no state."""
+    first, second = _serving_counts()[world]["steps"]
+    assert 0 < second <= first, (first, second)
+
+
+@pytest.mark.parametrize("n,sizes", [(2560, (16, 16)), (2560, (16, 32)),
+                                     (2560, (32, 16)), (64, (2, 2)),
+                                     (90, (3, 4)), (90, (4, 3))])
+def test_crossing_moves_each_chunk_from_its_holders(n, sizes):
+    """``common._crossing``, the plan of ``model_to_batch`` and of its
+    gradient (the sizes the other way round), for every rank of two mesh
+    dimensions: each rank gets exactly its chunk of the split over the
+    second dimension, each piece from a rank that holds it in the split
+    over the first, and what a rank is sent is what its sender sends it;
+    where the sizes are equal, each rank swaps its chunk with one other
+    (the transposition of (16, 16))."""
+    from repro_torch.models.common import _chunk, _crossing
+    a, b = sizes
+    plans = {(i, j): _crossing(n, sizes, (i, j))
+             for i in range(a) for j in range(b)}
+    for me, (sent, got) in plans.items():
+        lo, hi = _chunk(n, b, me[1])
+        assert [c for _, s, e in got for c in range(s, e)] == list(
+            range(lo, hi))
+        for src, s, e in got:
+            held = _chunk(n, a, src[0])
+            assert held[0] <= s < e <= held[1]
+            assert src == me or (me, s, e) in plans[src][0]
+        for dst, s, e in sent:
+            assert (me, s, e) in plans[dst][1]
+        if a == b:
+            assert [src for src, _, _ in got] == [me[::-1]]
 
 
 # -- a gloo world: MoE's F slices and the dense model across real ranks -------
@@ -886,6 +1034,58 @@ def models_on(m, cases):
     return out
 
 
+# a DTensor's placements: a shard's dimension, "R" or "P"
+def layout(t):
+    return [p.dim if p.is_shard() else "R" if p.is_replicate() else "P"
+            for p in t.placements] if isinstance(t, DTensor) else None
+
+
+def close(a, b):
+    return bool(torch.allclose(full(a), b, rtol=1e-4, atol=1e-5))
+
+
+# the vocab-parallel embedding (each rank looks its tokens up in its own
+# rows of the table, the rows all-reduced over 'model') against one
+# process: the lookup, and the table's gradient, each rank's own rows; a
+# vocabulary of 250 padded to 256 rows (128 a 'model' rank), tokens on
+# both ranks' rows, each of them twice
+def embedding(m):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import param_shardings
+    from repro_torch.distributed.sharding import batch_spec
+    from repro_torch.models import transformer
+    cfg = get_config("qwen3-0.6b").reduced(vocab_size=250)
+    gen = torch.Generator().manual_seed(4)
+    table = torch.randn((transformer.padded_vocab(cfg), cfg.d_model),
+                        generator=gen)
+    first = torch.randperm(cfg.vocab_size, generator=gen)[:12]
+    tokens = torch.cat([first, first.flip(0)]).reshape(2, 12)
+    cot = torch.randn((2, 12, cfg.d_model), generator=gen)
+    rule = param_shardings(m, cfg, {"embed": table})["embed"].spec
+
+    def run(place, ctx):
+        t = place(table, rule).requires_grad_()
+        with ctx():
+            x = transformer._embed({"embed": t}, cfg,
+                                   place(tokens, batch_spec(m, 2, 2)))
+            loss = (x * place(cot, batch_spec(m, 3, 2))).sum()
+            g, = torch.autograd.grad(full(loss), [t])
+        return full(x).detach(), full(g), layout(g)
+    want = run(lambda t, s: t.clone(), contextlib.nullcontext)
+    got = run(lambda t, s: NamedSharding(m, s).place(t.clone()),
+              lambda: activate_mesh(m))
+    rows = table.shape[0] // m.shape["model"]
+    return {"lookup_bitwise": bool(torch.equal(got[0], want[0])),
+            "grad_close": bool(torch.allclose(
+                got[1], want[1], rtol=1e-3,
+                atol=1e-4 * float(want[1].abs().max()))),
+            "grad_rows": int((want[1].abs().sum(1) > 0).sum()),
+            "padded_grad_zero": bool((got[1][cfg.vocab_size:] == 0).all()),
+            "grad_layout": got[2],
+            "model_ranks_hit": sorted({int(t) // rows
+                                       for t in tokens.flatten()})}
+
+
 # RWKV-6's mixes and head for one sequence on (2, 1, 2): 'pod' and 'data'
 # cannot split a batch of one, so they split the column-parallel products'
 # contracted channels and the row-parallel products' output channels
@@ -937,13 +1137,9 @@ def one_sequence(m, d, lora):
                 h = xi[:, -1]
                 w = place(head, col)
                 logits = rwkv6.head_logits(h, w)
-        # the new state keeps the decode cache's layout
-        layout = (not isinstance(st["S"], DTensor) or tuple(
-            st["S"].placements) == tuple(NamedSharding(m, s_spec)
-                                         .placements))
         return ([full(t).detach() for t in (yt, st_whole, yc, ys, st["S"],
                                             logits)],
-                [full(g) for g in grads], layout)
+                [full(g) for g in grads], layout(st["S"]))
     want = run(lambda t, s: t.clone(), contextlib.nullcontext)
     got = run(lambda t, s: NamedSharding(m, s).place(t.clone()),
               lambda: activate_mesh(m))
@@ -956,12 +1152,56 @@ def one_sequence(m, d, lora):
             "state_layout": got[2]}
 
 
+# reduced RWKV-6 decoding one sequence on (2, 1, 2) for two steps, the
+# second from the cache the first returned, against one process: 4 heads
+# (the cache splits them over 'model') and 5 (the cache replicates them,
+# the step returns them split 3 and 2)
+TWO_STEPS = {"4-heads": {}, "5-heads": {"d_model": 160}}
+
+
+def two_steps(m, overrides):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import cache_shardings, param_shardings
+    from repro_torch.distributed.sharding import batch_spec, place_tree
+    from repro_torch.models import build
+    cfg = get_config("rwkv6-3b").reduced(**overrides)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    placed = place_tree(params, param_shardings(m, cfg, params))
+    # a cache of its own: a replicated leaf placed keeps its storage,
+    # which the plain step writes in place
+    cache, d_cache = (model.init_cache(1, 16, torch_device="cpu")
+                      for _ in range(2))
+    d_cache = place_tree(d_cache, cache_shardings(m, cfg, d_cache, 1))
+    toks = torch.randint(0, cfg.vocab_size, (2, 1),
+                         generator=torch.Generator().manual_seed(3))
+    out = {"logits_close": []}
+    with torch.no_grad():
+        for tok in toks:
+            logits, cache = model.decode_step(params, cache, tok)
+            with activate_mesh(m):
+                d_logits, d_cache = model.decode_step(
+                    placed, d_cache, NamedSharding(
+                        m, batch_spec(m, 1, 1)).place(tok))
+            out["logits_close"].append(close(d_logits, logits))
+    keys = ("tmix_x", "cmix_x", "S")
+    out["states_close"] = [close(d_cache[k], cache[k]) for k in keys]
+    out["layouts"] = [layout(d_cache[k]) for k in keys]
+    return out
+
+
 res["models"] = models_on(remesh(list(range(world)), 2, pods=pods,
                                   torch_device="cpu"), MODELS)
+if world == 4:
+    res["embedding"] = embedding(remesh(list(range(world)), 2, pods=pods,
+                                        torch_device="cpu"))
 if pods == 2:
     res["one_sequence"] = {case: one_sequence(remesh(
         list(range(world)), 2, pods=pods, torch_device="cpu"), d, lora)
         for case, (d, lora) in ONE_SEQUENCE.items()}
+    res["two_steps"] = {case: two_steps(remesh(
+        list(range(world)), 2, pods=pods, torch_device="cpu"), overrides)
+        for case, overrides in TWO_STEPS.items()}
 else:
     res["models"].update(models_on(remesh(list(range(world)), 2,
                                           torch_device="cpu"), DENSE))
@@ -1119,7 +1359,40 @@ def test_one_sequence_splits_the_contraction_across_gloo_ranks(case):
     got = _gloo_world(4, 2)["one_sequence"][case]
     assert got["outputs_close"] == [True] * 6
     assert got["grads_close"] == [True] * 21      # x and 20 parameters
-    assert got["state_layout"] == (case != "whole-over-model")
+    # the new decode state by heads over 'model' (2 and 2, or 3 and 2 of
+    # the 5 the cache replicates), whole where 'model' splits no time mix
+    assert got["state_layout"] == (
+        ["R", "R"] if case == "whole-over-model" else ["R", 1])
+
+
+@pytest.mark.parametrize("case", ["4-heads", "5-heads"])
+def test_one_sequence_decodes_from_its_own_cache_across_gloo_ranks(case):
+    """Reduced RWKV-6 decoding one sequence on a (2, 1, 2) mesh of
+    processes for two steps, the second from the cache the first
+    returned, in the layout the step left it (token shifts split over the
+    batch axes, WKV states by heads over 'model'), against one process's
+    two steps: both steps' logits and the last cache."""
+    got = _gloo_world(4, 2)["two_steps"][case]
+    assert got["logits_close"] == [True] * 2
+    assert got["states_close"] == [True] * 3
+    assert got["layouts"] == [[3, "R"], [3, "R"], ["R", 2]]
+
+
+@pytest.mark.parametrize("world", [(4,), (4, 2)])
+def test_vocab_parallel_embedding_across_gloo_ranks(world):
+    """The token embedding on (2, 2) and (2, 1, 2) meshes of processes
+    against one process: each rank looks its tokens up in its own rows of
+    the vocab-split table (tokens on both 'model' ranks' rows, each twice)
+    and the rows are summed over 'model', bitwise the one process's
+    lookup; the table's gradient, within the file's gradient bound, comes
+    back split over 'model' as the table is, zero on the padded rows."""
+    got = _gloo_world(*world)["embedding"]
+    assert got["model_ranks_hit"] == [0, 1]
+    assert got["grad_rows"] == 12
+    assert got["lookup_bitwise"]
+    assert got["grad_close"]
+    assert got["padded_grad_zero"]
+    assert got["grad_layout"][-1] == 0
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "hubert-xlarge", "zamba2-7b",
